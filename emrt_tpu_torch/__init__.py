@@ -3,10 +3,10 @@
 The port of ``emrt_tpu`` (JAX on a TPU), which stays beside it as the
 reference. Module and class names follow ``emrt_tpu`` so each file has an
 obvious counterpart; inside, the code is PyTorch: ``nn.Module``s, NCHW
-activations, an explicit ``device``. The multi-scale deformable-attention
-forward runs through a hand-written CUDA kernel for Hopper
-(``csrc/ms_deform_attn_fwd.cu``) on CUDA tensors and through its plain
-PyTorch version on CPU tensors.
+activations, an explicit ``device``. The multi-scale deformable attention
+runs through hand-written CUDA kernels for Hopper on CUDA tensors, forward
+(``csrc/ms_deform_attn_fwd.cu``) and backward (``csrc/ms_deform_attn_bwd.cu``),
+and through its plain PyTorch version (and its autograd) on CPU tensors.
 
 This package never imports ``jax``, ``flax`` or ``emrt_tpu``.
 """

@@ -33,25 +33,11 @@
 // This first version stages nothing in shared memory and issues no TMA or
 // wgmma: those are for later, measured changes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ms_deform_attn_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 4;
-constexpr int kWarpsPerBlock = 8;
-
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];  // first token of each level in value's Lv axis
-};
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+using namespace ms_deform;
 
 template <typename T, typename A>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -81,19 +67,13 @@ ms_deform_attn_fwd_kernel(const T* __restrict__ value, const float* __restrict__
       for (int p = 0; p < n_points; ++p) {
         const int s = l * n_points + p;
         const float a = to_float(attn_row[s]);
-        const float x = __fsub_rn(__fmul_rn(loc_row[2 * s], static_cast<float>(W)), 0.5f);
-        const float y = __fsub_rn(__fmul_rn(loc_row[2 * s + 1], static_cast<float>(H)), 0.5f);
-        const float x0f = floorf(x);
-        const float y0f = floorf(y);
-        const float fx = x - x0f;
-        const float fy = y - y0f;
-        // validity tested in float, so far-off coordinates never reach an int cast
-        const bool x0_in = x0f >= 0.f && x0f < W;
-        const bool x1_in = x0f + 1.f >= 0.f && x0f + 1.f < W;
-        const bool y0_in = y0f >= 0.f && y0f < H;
-        const bool y1_in = y0f + 1.f >= 0.f && y0f + 1.f < H;
-        const int x0 = static_cast<int>(x0f);
-        const int y0 = static_cast<int>(y0f);
+        const Sample sp = sample_at(loc_row[2 * s], loc_row[2 * s + 1], W, H);
+        const float fx = sp.fx;
+        const float fy = sp.fy;
+        const int x0 = sp.x0;
+        const int y0 = sp.y0;
+        const bool x0_in = sp.x0_in, x1_in = sp.x1_in;
+        const bool y0_in = sp.y0_in, y1_in = sp.y1_in;
         const float ay0 = a * (1.f - fy);
         const float ay1 = a * fy;
         if (y0_in) {
@@ -132,18 +112,10 @@ extern "C" int ms_deform_attn_fwd(const void* value, const void* loc, const void
                                   int len_q, int len_v, int n_heads, int channels,
                                   int n_levels, int n_points, const int* level_hw,
                                   void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || channels % 32 != 0) {
+  Levels levels;
+  if (channels % 32 != 0 || !make_levels(level_hw, n_levels, len_v, &levels)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Levels levels = {};
-  int start = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    levels.h[l] = level_hw[2 * l];
-    levels.w[l] = level_hw[2 * l + 1];
-    levels.start[l] = start;
-    start += levels.h[l] * levels.w[l];
-  }
-  if (start != len_v) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_rows = static_cast<int64_t>(batch) * len_q * n_heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (value_dtype == 0 && attn_dtype == 0) {

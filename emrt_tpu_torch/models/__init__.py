@@ -16,7 +16,7 @@ def get_model(config, device=None, dtype=None, use_kernel: bool = True):
 
     dtype: None -> TRAIN.DTYPE ("bfloat16" runs under autocast).
     use_kernel: True sends the deformable-attention core of CUDA tensors to
-    the CUDA kernel; False runs its plain PyTorch version everywhere.
+    the CUDA kernels; False runs its plain PyTorch version everywhere.
     """
     if dtype is None:
         dtype = (torch.bfloat16 if getattr(config.TRAIN, "DTYPE", "float32") == "bfloat16"

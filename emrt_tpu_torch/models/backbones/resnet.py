@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import kaiming_normal_
+from ..layers import BatchNorm2d, kaiming_normal_
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
@@ -21,8 +21,8 @@ def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
                                      bias=False))
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:

@@ -15,7 +15,7 @@ class FCNHead(nn.Module):
     def __init__(self, in_channels: int, channels: int, num_classes: int):
         super().__init__()
         self.convs = nn.ModuleList([ConvBNReLU(in_channels, channels, 3)])
-        self.dropout = nn.Dropout2d(0.1)
+        self.dropout = nn.Dropout(0.1)
         self.conv_seg = kaiming_normal_(nn.Conv2d(channels, num_classes, 1))
 
     def forward(self, x):

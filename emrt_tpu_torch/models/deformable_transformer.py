@@ -44,19 +44,22 @@ def _offset_bias_init(num_heads: int, num_levels: int, num_points: int) -> np.nd
 def _level_tables(spatial_shapes: tuple, hidden_dim: int, device: torch.device):
     """Constant per-geometry tables on ``device``: sine position embedding
     [sum(HW), C], encoder reference points [sum(HW), L, 2] and the (W, H)
-    offset normalizer [L, 2]."""
-    pos = torch.cat([sine_position_embedding(h, w, hidden_dim // 2)
-                     for h, w in spatial_shapes])
-    ref = encoder_reference_points(spatial_shapes)
-    norm = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32)
-    return pos.to(device), ref.to(device), norm.to(device)
+    offset normalizer [L, 2]. Made outside inference mode even when the
+    first call comes from an eval under ``torch.inference_mode``: autograd
+    refuses to save inference tensors, and training uses the same tables."""
+    with torch.inference_mode(False):
+        pos = torch.cat([sine_position_embedding(h, w, hidden_dim // 2)
+                         for h, w in spatial_shapes])
+        ref = encoder_reference_points(spatial_shapes)
+        norm = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32)
+        return pos.to(device), ref.to(device), norm.to(device)
 
 
 class MSDeformableAttention(nn.Module):
     """Multi-scale deformable attention (reference :21-107).
 
     ``use_kernel`` picks the core: True (the default) dispatches through
-    ``ops.deformable.deformable_attention`` (CUDA kernel on CUDA tensors, the
+    ``ops.deformable.deformable_attention`` (CUDA kernels on CUDA tensors, the
     plain version on CPU tensors); False always runs the plain version
     (``models.get_model(..., use_kernel=False)`` sets it).
     """

@@ -30,7 +30,7 @@ from ..ops.resize import resize_bilinear
 from .backbones.resnet import _DEPTHS, backbone_channels, resnet
 from .decoders.fcn_head import FCNHead
 from .deformable_transformer import EncoderDecoder, tokens_to_levels
-from .layers import ConvBNReLU, kaiming_normal_
+from .layers import BatchNorm2d, ConvBNReLU, kaiming_normal_
 
 
 class Conv2dBlock(nn.Module):
@@ -120,7 +120,7 @@ class UpHead(nn.Module):
         super().__init__()
         for i in range(3):
             setattr(self, f"conv_{i}", kaiming_normal_(nn.Conv2d(256, 256, 3, padding=1)))
-            setattr(self, f"syncbn_fc_{i}", nn.BatchNorm2d(256, eps=1e-5))
+            setattr(self, f"syncbn_fc_{i}", BatchNorm2d(256, eps=1e-5))
         self.conv_3 = kaiming_normal_(nn.Conv2d(256, num_classes, 1))
 
     @staticmethod
@@ -173,7 +173,7 @@ class EMRT(nn.Module):
         # context + one re-broadcast map per PSP scale + the fused pyramid
         self.cls_psp = nn.Sequential(
             *ConvBNReLU(256 * (2 + len(self.psp_scales)), 512, 3),
-            *ConvBNReLU(512, 256, 3), nn.Dropout2d(0.1))
+            *ConvBNReLU(512, 256, 3), nn.Dropout(0.1))
         self.uphead = UpHead(num_classes)
         self.auxlayer = FCNHead(channels[2], max(channels[2] // 4, 16), num_classes)
 

@@ -26,6 +26,33 @@ def xavier_uniform_(layer):
     return layer
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance follows flax's ``BatchNorm``.
+
+    In train mode both normalise with the biased batch variance, but torch
+    moves ``running_var`` toward the unbiased one (n / (n - 1) larger, n =
+    N*H*W per channel; 8/7 for a 1x1 pooled map at batch 8) and flax toward
+    the biased one. torch's update goes into a copy ``new`` (autograd keeps
+    the tensor it was given for the backward, so that one must not change
+    afterwards), and the buffer becomes ``(1 - m) * old + m * var_biased``
+    = ``new - (new - (1 - m) * old) / n``. Eval mode and the state-dict keys
+    are torch's.
+    """
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        new = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, new, self.weight, self.bias, True,
+                           self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.copy_(new - (new - (1.0 - self.momentum) * self.running_var) / n)
+        return out
+
+
 class ConvBNReLU(nn.Sequential):
     """conv(k, no bias) + BatchNorm(eps 1e-5) + ReLU, as ``[0]``, ``[1]``, ``[2]``
     (the reference's Sequential indices)."""
@@ -34,7 +61,7 @@ class ConvBNReLU(nn.Sequential):
         super().__init__(
             kaiming_normal_(nn.Conv2d(in_channels, out_channels, kernel_size,
                                       padding=kernel_size // 2, bias=False)),
-            nn.BatchNorm2d(out_channels, eps=1e-5),
+            BatchNorm2d(out_channels, eps=1e-5),
             nn.ReLU(inplace=True))
 
 

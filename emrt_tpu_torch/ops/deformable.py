@@ -9,9 +9,11 @@ with their own validity masks, weighted by the attention weights and summed
 over levels and points in float32.
 
 ``deformable_attention_core`` is the plain version: the CPU path and the
-reference the kernel is held to. ``deformable_attention`` is what the model
-calls: CPU tensors take the plain version, CUDA tensors take the kernel
-(``ops/deformable_cuda.py``) or the call raises.
+reference the kernels are held to, forward and backward (its autograd).
+``deformable_attention`` is what the model calls: CPU tensors take the plain
+version, CUDA tensors take the kernels (``ops/deformable_cuda.py``) or the
+call raises: the forward kernel K1 alone without grad, and
+``DeformableAttentionFunction`` (K1 forward, K2 and K3 backward) with it.
 """
 from __future__ import annotations
 
@@ -72,23 +74,51 @@ def deformable_attention_core(value, spatial_shapes, sampling_locations,
     return out.permute(0, 2, 1, 3).reshape(bs, len_q, n_head * c).to(value.dtype)
 
 
+class DeformableAttentionFunction(torch.autograd.Function):
+    """K1 forward, K2 and K3 backward: the counterpart of the JAX package's
+    ``custom_vjp`` around ``deformable_attention_pallas``.
+
+    apply(value, spatial_shapes, sampling_locations, attention_weights) ->
+    [bs, Lq, nh*c]; the gradients come in the inputs' dtypes (value's and
+    the attention weights', f32 for the locations). The kernels take
+    contiguous inputs on one CUDA device and raise on anything else.
+    """
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
+        from .deformable_cuda import ms_deform_attn_fwd
+        ctx.spatial_shapes = tuple(spatial_shapes)
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return ms_deform_attn_fwd(value, spatial_shapes, sampling_locations,
+                                  attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from .deformable_cuda import ms_deform_attn_bwd
+        value, loc, attn = ctx.saved_tensors
+        grad_value, grad_loc, grad_attn = ms_deform_attn_bwd(
+            value, ctx.spatial_shapes, loc, attn, grad_out.contiguous())
+        need = ctx.needs_input_grad
+        return (grad_value if need[0] else None, None,
+                grad_loc if need[2] else None, grad_attn if need[3] else None)
+
+
 def deformable_attention(value, spatial_shapes, sampling_locations,
                          attention_weights):
     """Same contract as ``deformable_attention_core``.
 
-    CPU tensors go to the plain version. Any other tensor goes to the CUDA
-    kernel, whose wrapper raises on what it does not take. The kernel has no
-    backward yet, so an input that requires grad raises instead of taking
-    the plain version's autograd.
+    CPU tensors go to the plain version (and its autograd). Any other tensor
+    goes to the CUDA kernels, whose wrappers raise on what they do not take:
+    through ``DeformableAttentionFunction`` when grad is on and an input
+    requires it, straight to the forward kernel otherwise.
     """
     if value.device.type == "cpu":
         return deformable_attention_core(value, spatial_shapes,
                                          sampling_locations, attention_weights)
-    if any(t.requires_grad for t in (value, sampling_locations,
-                                     attention_weights)):
-        raise NotImplementedError(
-            "the deformable-attention CUDA kernel has no backward yet (kernels "
-            "K2 and K3 in ROADMAP.md queue 2); run it under torch.no_grad()")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, sampling_locations, attention_weights)):
+        return DeformableAttentionFunction.apply(
+            value, spatial_shapes, sampling_locations, attention_weights)
     from .deformable_cuda import ms_deform_attn_fwd
     return ms_deform_attn_fwd(value, spatial_shapes, sampling_locations,
                               attention_weights)

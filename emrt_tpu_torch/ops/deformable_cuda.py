@@ -1,15 +1,23 @@
-"""Wrapper of the Hopper kernel for the deformable-attention forward.
+"""Wrappers of the Hopper kernels for multi-scale deformable attention.
 
-The kernel (``csrc/ms_deform_attn_fwd.cu``, kernel K1 of ROADMAP.md queue 2)
-is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface under ``emrt_tpu_torch/_build/`` at first use, rebuilt whenever the
-source's hash changes, and loaded with ``ctypes``. A missing ``nvcc`` or a
+Three kernels, one for each TPU kernel of ROADMAP.md queue 2:
+
+- K1, the forward: ``ms_deform_attn_fwd`` (``csrc/ms_deform_attn_fwd.cu``);
+- K2, the gradient of value: ``ms_deform_attn_bwd_value``, and
+- K3, the gradients of the locations and attention weights:
+  ``ms_deform_attn_bwd_loc_attn`` (both in ``csrc/ms_deform_attn_bwd.cu``).
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface under ``emrt_tpu_torch/_build/`` at first use (all
+sources at once, one ``nvcc`` each), rebuilt whenever the hash of the
+``csrc/`` files changes, and loaded with ``ctypes``. A missing ``nvcc`` or a
 failed build raises: there is no fallback. Nothing here touches CUDA or the
 compiler at import time.
 
-``ms_deform_attn_fwd`` checks its arguments, allocates the output, launches
-on PyTorch's current stream and raises if the launch was refused. Each
-launch adds one to ``launches``.
+Each wrapper checks its arguments, allocates its outputs, launches on
+PyTorch's current stream and raises if the launch was refused. Each launch
+adds one to the kernel's counter: ``launches`` (K1), ``bwd_value_launches``
+(K2), ``bwd_loc_attn_launches`` (K3).
 """
 from __future__ import annotations
 
@@ -23,50 +31,75 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "ms_deform_attn_fwd.cu"
+CSRC = _PKG / "csrc"
+SOURCES = {"ms_deform_attn_fwd": CSRC / "ms_deform_attn_fwd.cu",
+           "ms_deform_attn_bwd": CSRC / "ms_deform_attn_bwd.cu"}
+HEADERS = (CSRC / "ms_deform_attn_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_LEVELS = 4
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# C entry -> (library, argtypes); every entry ends with
+# (..., int n_levels, int n_points, const int* level_hw, void* stream)
+_SHAPE_ARGS = [_INT] * 9 + [ctypes.POINTER(_INT), _PTR]
+_ENTRIES = {
+    "ms_deform_attn_fwd": ("ms_deform_attn_fwd", [_PTR] * 4 + _SHAPE_ARGS),
+    "ms_deform_attn_bwd_value": ("ms_deform_attn_bwd", [_PTR] * 4 + _SHAPE_ARGS),
+    "ms_deform_attn_bwd_loc_attn": ("ms_deform_attn_bwd", [_PTR] * 6 + _SHAPE_ARGS),
+}
 
-launches = 0          # kernel launches since the last reset by the caller
-build_log = ""        # nvcc/ptxas output of the build this process made
-_fn = None
+launches = 0               # K1 launches since the last reset by the caller
+bwd_value_launches = 0     # K2
+bwd_loc_attn_launches = 0  # K3
+build_log = ""             # nvcc/ptxas output of the builds this process made
+_fns: dict = {}
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.access(path, os.X_OK):
         raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
-                           "the deformable-attention kernel cannot be built")
+                           "the deformable-attention kernels cannot be built")
     return path
 
 
-def build():
-    """Compile (if needed) and load the kernel library; returns the C entry."""
-    global _fn, build_log
-    if _fn is not None:
-        return _fn
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"ms_deform_attn_fwd-{digest}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+def build() -> dict:
+    """Compile what is missing (one ``nvcc`` per source, all started
+    together), load the libraries and return {entry name: C function}."""
+    global build_log
+    if _fns:
+        return _fns
+    shared = b"".join(h.read_bytes() for h in HEADERS) + " ".join(NVCC_FLAGS).encode()
+    libs, procs = {}, {}
+    for name, source in SOURCES.items():
+        digest = hashlib.sha256(source.read_bytes() + shared).hexdigest()[:16]
+        libs[name] = BUILD_DIR / f"{name}-{digest}.so"
+        if not libs[name].exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = libs[name].with_name(f"{libs[name].name}.{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_log += f"--- {SOURCES[name].name}\n{out}"
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
-                               f"(exit {proc.returncode}):\n{build_log}")
-        os.replace(tmp, lib_path)
-    fn = ctypes.CDLL(str(lib_path)).ms_deform_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _fn = fn
-    return fn
+            failed.append(f"{SOURCES[name].name} (exit {proc.returncode})")
+        else:
+            os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError(f"nvcc failed to build {', '.join(failed)}:\n{build_log}")
+    fns = {}
+    for entry, (lib, argtypes) in _ENTRIES.items():
+        fn = getattr(ctypes.CDLL(str(libs[lib])), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[entry] = fn
+    _fns.update(fns)
+    return _fns
 
 
 def _check_args(value, spatial_shapes, sampling_locations, attention_weights):
@@ -110,6 +143,30 @@ def _check_args(value, spatial_shapes, sampling_locations, attention_weights):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_device(*tensors):
+    if any(t.device.type != "cuda" or t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"the kernel takes tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+
+
+def _launch(entry, pointers, value, spatial_shapes, sampling_locations,
+            attention_weights):
+    """Call the C entry with the tensors' pointers, then the shared shape
+    arguments and PyTorch's current stream; raise if it reports an error."""
+    fn = build()[entry]
+    bs, len_v, n_heads, channels = value.shape
+    _, len_q, _, n_levels, n_points, _ = sampling_locations.shape
+    level_hw = (ctypes.c_int * (2 * n_levels))(
+        *[int(d) for hw in spatial_shapes for d in hw])
+    with torch.cuda.device(value.device):
+        err = fn(*[t.data_ptr() for t in pointers],
+                 _DTYPE_CODE[value.dtype], _DTYPE_CODE[attention_weights.dtype],
+                 bs, len_q, len_v, n_heads, channels, n_levels, n_points,
+                 level_hw, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+
+
 def ms_deform_attn_fwd(value, spatial_shapes, sampling_locations,
                        attention_weights):
     """Kernel K1: same contract as ``ops.deformable.deformable_attention_core``.
@@ -120,26 +177,80 @@ def ms_deform_attn_fwd(value, spatial_shapes, sampling_locations,
     """
     global launches
     _check_args(value, spatial_shapes, sampling_locations, attention_weights)
-    tensors = (value, sampling_locations, attention_weights)
-    if any(t.device.type != "cuda" or t.device != value.device for t in tensors):
-        raise ValueError(f"the kernel takes tensors on one CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    bs, len_v, n_heads, channels = value.shape
-    _, len_q, _, n_levels, n_points, _ = sampling_locations.shape
+    _check_device(value, sampling_locations, attention_weights)
+    bs, _, n_heads, channels = value.shape
+    len_q = sampling_locations.shape[1]
     out = torch.empty((bs, len_q, n_heads * channels), dtype=value.dtype,
                       device=value.device)
     if out.numel() == 0:
         return out
-    fn = build()
-    level_hw = (ctypes.c_int * (2 * n_levels))(
-        *[int(d) for hw in spatial_shapes for d in hw])
-    with torch.cuda.device(value.device):
-        err = fn(value.data_ptr(), sampling_locations.data_ptr(),
-                 attention_weights.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODE[value.dtype], _DTYPE_CODE[attention_weights.dtype],
-                 bs, len_q, len_v, n_heads, channels, n_levels, n_points,
-                 level_hw, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ms_deform_attn_fwd launch failed: CUDA error {err}")
+    _launch("ms_deform_attn_fwd",
+            (value, sampling_locations, attention_weights, out),
+            value, spatial_shapes, sampling_locations, attention_weights)
     launches += 1
     return out
+
+
+def _check_bwd_args(value, spatial_shapes, sampling_locations, attention_weights,
+                    grad_out):
+    """The forward's checks, plus grad_out's shape, dtype and contiguity."""
+    _check_args(value, spatial_shapes, sampling_locations, attention_weights)
+    bs, _, n_heads, channels = value.shape
+    want = (bs, sampling_locations.shape[1], n_heads * channels)
+    if tuple(grad_out.shape) != want:
+        raise ValueError(f"grad_out must be {want}, got {tuple(grad_out.shape)}")
+    if grad_out.dtype != value.dtype:
+        raise TypeError(f"grad_out must be {value.dtype} (the output's dtype), "
+                        f"got {grad_out.dtype}")
+    if not grad_out.is_contiguous():
+        raise ValueError("grad_out must be contiguous")
+    _check_device(value, sampling_locations, attention_weights, grad_out)
+
+
+def ms_deform_attn_bwd_value(value, spatial_shapes, sampling_locations,
+                             attention_weights, grad_out):
+    """Kernel K2: the gradient of value at ``grad_out``, in value's dtype.
+
+    K2 adds into a zeroed f32 buffer with atomics, so its last bits depend
+    on the order the card ran them in; the buffer is then cast.
+    """
+    global bwd_value_launches
+    _check_bwd_args(value, spatial_shapes, sampling_locations, attention_weights,
+                    grad_out)
+    grad_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+    if grad_out.numel() > 0:
+        _launch("ms_deform_attn_bwd_value",
+                (sampling_locations, attention_weights, grad_out, grad_value),
+                value, spatial_shapes, sampling_locations, attention_weights)
+        bwd_value_launches += 1
+    return grad_value.to(value.dtype)
+
+
+def ms_deform_attn_bwd_loc_attn(value, spatial_shapes, sampling_locations,
+                                attention_weights, grad_out):
+    """Kernel K3: the gradients of the sampling locations (f32) and of the
+    attention weights (in their dtype) at ``grad_out``."""
+    global bwd_loc_attn_launches
+    _check_bwd_args(value, spatial_shapes, sampling_locations, attention_weights,
+                    grad_out)
+    if grad_out.numel() == 0:
+        return torch.zeros_like(sampling_locations), torch.zeros_like(attention_weights)
+    grad_loc = torch.empty_like(sampling_locations)
+    grad_attn = torch.empty_like(attention_weights)
+    _launch("ms_deform_attn_bwd_loc_attn",
+            (value, sampling_locations, attention_weights, grad_out, grad_loc, grad_attn),
+            value, spatial_shapes, sampling_locations, attention_weights)
+    bwd_loc_attn_launches += 1
+    return grad_loc, grad_attn
+
+
+def ms_deform_attn_bwd(value, spatial_shapes, sampling_locations,
+                       attention_weights, grad_out):
+    """Kernels K2 and K3: the gradients of ``ms_deform_attn_fwd`` at
+    ``grad_out`` ([bs, Lq, nh*c], value's dtype), exactly those of the plain
+    version's autograd: (grad_value in value's dtype, grad_sampling_locations
+    f32, grad_attention_weights in the attention weights' dtype), each in
+    the shape of its input.
+    """
+    args = (value, spatial_shapes, sampling_locations, attention_weights, grad_out)
+    return (ms_deform_attn_bwd_value(*args), *ms_deform_attn_bwd_loc_attn(*args))

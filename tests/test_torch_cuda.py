@@ -1,11 +1,14 @@
-"""Tests of the port's CUDA kernel that need a card.
+"""Tests of the port's CUDA kernels that need a card.
 
-They skip without a CUDA device (the kernel has no CPU mode) and import no
+They skip without a CUDA device (the kernels have no CPU mode) and import no
 JAX, so they run on a GPU machine that has only PyTorch:
-``python3 -m pytest tests/test_torch_cuda.py -q``. The kernel is held to its
-plain PyTorch version on the same inputs: max |kernel - plain| <=
-1e-5 x max|plain| + 1e-6 in float32 (the sums differ in order only) and
-<= 1e-2 x max|plain| in bfloat16 (one rounding of the output).
+``python3 -m pytest tests/test_torch_cuda.py -q``. Each kernel is held to its
+plain PyTorch version on the same inputs (the forward to the plain core, the
+backward kernels to the core's autograd): max |kernel - plain| <=
+1e-5 x max|plain| + 1e-6 in float32 (the sums differ in order only; K2's
+atomics add in an order that changes from run to run) and <= 1e-2 x
+max|plain| in bfloat16 (one rounding of the output). Out of bounds, every
+output is exactly 0.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ torch = pytest.importorskip("torch")
 from emrt_tpu_torch.models.deformable_transformer import _offset_bias_init  # noqa: E402
 from emrt_tpu_torch.models.position_encoding import encoder_reference_points  # noqa: E402
 from emrt_tpu_torch.ops import deformable_cuda  # noqa: E402
-from emrt_tpu_torch.ops.deformable import (deformable_attention,  # noqa: E402
+from emrt_tpu_torch.ops.deformable import (DeformableAttentionFunction,  # noqa: E402
+                                           deformable_attention,
                                            deformable_attention_core)
 
 pytestmark = pytest.mark.cuda
@@ -75,9 +79,59 @@ def test_kernel_matches_plain_version(device, dtype, loc_set, len_q):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-def test_kernel_refuses_mixed_devices_and_grad(device):
+def _tol(want, dtype):
+    scale = want.float().abs().max().item()
+    return 1e-5 * scale + 1e-6 if dtype == torch.float32 else 1e-2 * scale
+
+
+def plain_grads(value, loc, attn, grad_out):
+    """The plain core's autograd: (grad value, grad loc, grad attn)."""
+    v, l, a = (t.detach().clone().requires_grad_() for t in (value, loc, attn))
+    out = deformable_attention_core(v, LEVELS, l, a)
+    return torch.autograd.grad(out, (v, l, a), grad_out)
+
+
+@pytest.mark.parametrize("loc_set", ["random", "out of bounds", "on the grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("len_q", [1344, 110])
+def test_backward_kernels_match_plain_autograd(device, dtype, loc_set, len_q):
+    value, loc, attn = _inputs(device, dtype, loc_set, len_q=len_q)
+    gen = torch.Generator(device=device).manual_seed(1)
+    grad_out = torch.randn((2, len_q, 256), generator=gen, device=device).to(dtype)
+    before = (deformable_cuda.bwd_value_launches, deformable_cuda.bwd_loc_attn_launches)
+    got = deformable_cuda.ms_deform_attn_bwd(value, LEVELS, loc, attn, grad_out)
+    want = plain_grads(value, loc, attn, grad_out)
+    torch.cuda.synchronize()
+    assert (deformable_cuda.bwd_value_launches,
+            deformable_cuda.bwd_loc_attn_launches) == (before[0] + 1, before[1] + 1)
+    for g, w, t in zip(got, want, (value, loc, attn)):
+        assert g.dtype == w.dtype == t.dtype and g.shape == w.shape == t.shape
+        if loc_set == "out of bounds":
+            assert not g.any() and not w.any()
+        else:
+            assert (g.float() - w.float()).abs().max().item() <= _tol(w, dtype)
+
+
+def test_function_gradients_match_plain_version(device):
+    """Small f32 problem through autograd: the Function's output and three
+    gradients against the plain core's."""
+    value, loc, attn = _inputs(device, torch.float32, "random", bs=1, len_q=50)
+    grad_out = torch.randn((1, 50, 256), device=device)
+    ins = [t.clone().requires_grad_() for t in (value, loc, attn)]
+    out = deformable_attention(ins[0], LEVELS, ins[1], ins[2])
+    assert out.grad_fn is not None and "DeformableAttentionFunction" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, ins, grad_out)
+    want = plain_grads(value, loc, attn, grad_out)
+    ref = deformable_attention_core(value, LEVELS, loc, attn)
+    assert (out - ref).abs().max().item() <= _tol(ref, torch.float32)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= _tol(w, torch.float32)
+
+
+def test_kernel_refuses_mixed_devices(device):
     value, loc, attn = _inputs(device, torch.float32, "random", len_q=110)
     with pytest.raises(ValueError, match="one CUDA device"):
         deformable_cuda.ms_deform_attn_fwd(value, LEVELS, loc.cpu(), attn)
-    with pytest.raises(NotImplementedError, match="K2 and K3"):
-        deformable_attention(value.requires_grad_(), LEVELS, loc, attn)
+    grad_out = torch.zeros((2, 110, 256), device=device)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        deformable_cuda.ms_deform_attn_bwd(value, LEVELS, loc, attn, grad_out.cpu())

@@ -6,8 +6,11 @@ interpret mode, on the same numpy inputs, at rtol = atol = 1e-5 in float32
 (the bound ``test_pallas_kernel.py`` uses): the two differ only in the order
 of float32 sums. Location sets: random in [-0.1, 1.1], all out of bounds
 (exact zeros), and on the pixel grid (encoder reference points plus the
-rotated-grid init offsets). The CUDA kernel's argument checks run here
-before any launch; the kernel itself is compared on the card.
+rotated-grid init offsets). Its three gradients (autograd) are held to
+``jax.vjp`` of the golden the same way, each within 1e-5 x its max; on the
+grid both take the one-sided derivative of the floor. The CUDA kernels'
+argument checks and the autograd Function's wiring run here before any
+launch; the kernels themselves are compared on the card.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from emrt_tpu.ops.deformable_pallas import deformable_attention_pallas  # noqa: 
 from emrt_tpu_torch.models.deformable_transformer import _offset_bias_init  # noqa: E402
 from emrt_tpu_torch.models.position_encoding import encoder_reference_points  # noqa: E402
 from emrt_tpu_torch.ops import deformable_cuda  # noqa: E402
-from emrt_tpu_torch.ops.deformable import (deformable_attention,  # noqa: E402
+from emrt_tpu_torch.ops.deformable import (DeformableAttentionFunction,  # noqa: E402
+                                           deformable_attention,
                                            deformable_attention_core)
 
 torch.set_num_threads(1)
@@ -89,6 +93,54 @@ def test_plain_core_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def _grad_out(value, loc, seed=7):
+    bs, lq = loc.shape[:2]
+    return np.random.default_rng(seed).standard_normal(
+        (bs, lq, value.shape[2] * value.shape[3])).astype(np.float32)
+
+
+def _plain_grads(shapes, value, loc, attn, g):
+    ins = [t.clone().requires_grad_() for t in _torch(value, loc, attn)]
+    out = deformable_attention_core(ins[0], shapes, ins[1], ins[2])
+    return [x.numpy() for x in torch.autograd.grad(out, ins, torch.from_numpy(g))]
+
+
+@pytest.mark.parametrize("loc_set", ["random", "out of bounds", "on the grid"])
+@pytest.mark.parametrize("problem", list(PROBLEMS))
+def test_plain_core_gradients_match_jax_vjp(problem, loc_set):
+    """grad value, grad loc, grad attn of the plain version's autograd
+    against jax.vjp of the jnp golden, each within 1e-5 x its max."""
+    shapes, value, loc, attn = make_inputs(problem, loc_set)
+    g = _grad_out(value, loc)
+    _, vjp = jax.vjp(lambda v, l, a: jax_core(v, shapes, l, a),
+                     jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(g))]
+    got = _plain_grads(shapes, value, loc, attn, g)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype == np.float32
+        if loc_set == "out of bounds":
+            assert not x.any() and not y.any()
+        else:
+            scale = np.abs(y).max()
+            assert scale > 0
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_plain_core_gradients_match_pallas_interpret():
+    """Off the grid only: at integer coordinates the Pallas backward takes
+    sign(0) = 0 (fault F1 of ROADMAP.md queue 3), the plain version the
+    one-sided derivative. Bound as in test_pallas_kernel.py: the Pallas
+    backward sums through dense one-hot products."""
+    shapes, value, loc, attn = make_inputs("small", "random")
+    g = _grad_out(value, loc)
+    _, vjp = jax.vjp(lambda v, l, a: deformable_attention_pallas(v, shapes, l, a, True),
+                     jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(g))]
+    for x, y in zip(_plain_grads(shapes, value, loc, attn, g), want):
+        scale = np.abs(y).max()
+        np.testing.assert_allclose(x / scale, y / scale, rtol=2e-4, atol=2e-5)
+
+
 def test_plain_core_bf16_accumulates_in_f32():
     """bf16 values in, f32 sums, one rounding to bf16 at the end."""
     shapes, value, loc, attn = make_inputs("small", "random")
@@ -112,14 +164,62 @@ def _meta(shape):
 
 
 @pytest.mark.parametrize("which", [0, 1, 2])
-def test_dispatcher_refuses_grad_off_cpu(which):
-    """No backward kernel yet: an input that requires grad raises rather
-    than taking the plain version's autograd."""
-    shapes = ((8, 8), (4, 4))
+def test_dispatcher_sends_grad_off_cpu_to_the_function(which, monkeypatch):
+    """A non-CPU input that requires grad goes through the autograd Function:
+    K1 forward, then K2/K3 for the backward. Meta tensors stand for CUDA
+    ones; the kernel wrappers are replaced by recorders."""
+    calls = []
+
+    def fwd(value, shapes, loc, attn):
+        calls.append("fwd")
+        return torch.empty((1, 7, 128), device="meta")
+
+    def bwd(value, shapes, loc, attn, grad_out):
+        calls.append("bwd")
+        return torch.zeros_like(value), torch.zeros_like(loc), torch.zeros_like(attn)
+
+    monkeypatch.setattr(deformable_cuda, "ms_deform_attn_fwd", fwd)
+    monkeypatch.setattr(deformable_cuda, "ms_deform_attn_bwd", bwd)
     args = [_meta((1, 80, 4, 32)), _meta((1, 7, 4, 2, 3, 2)), _meta((1, 7, 4, 2, 3))]
     args[which].requires_grad_()
-    with pytest.raises(NotImplementedError, match="K2 and K3"):
-        deformable_attention(args[0], shapes, args[1], args[2])
+    out = deformable_attention(args[0], ((8, 8), (4, 4)), args[1], args[2])
+    assert type(out.grad_fn).__name__ == "DeformableAttentionFunctionBackward"
+    (grad,) = torch.autograd.grad(out, args[which], torch.ones_like(out))
+    assert calls == ["fwd", "bwd"] and grad.shape == args[which].shape
+    with torch.no_grad():        # grad off: the forward kernel alone
+        out = deformable_attention(args[0], ((8, 8), (4, 4)), args[1], args[2])
+    assert out.grad_fn is None and calls == ["fwd", "bwd", "fwd"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_backward_returns_the_kernel_gradients(dtype, monkeypatch):
+    """The Function's wiring on CPU tensors, with the kernel wrappers replaced
+    by the plain version and its autograd: output, gradient order and dtypes
+    as the plain version's."""
+    def fwd(value, shapes, loc, attn):
+        return deformable_attention_core(value, shapes, loc, attn)
+
+    def bwd(value, shapes, loc, attn, grad_out):
+        ins = [t.detach().requires_grad_() for t in (value, loc, attn)]
+        with torch.enable_grad():       # a backward runs with grad off
+            out = deformable_attention_core(ins[0], shapes, *ins[1:])
+        return torch.autograd.grad(out, ins, grad_out)
+
+    monkeypatch.setattr(deformable_cuda, "ms_deform_attn_fwd", fwd)
+    monkeypatch.setattr(deformable_cuda, "ms_deform_attn_bwd", bwd)
+    shapes, value, loc, attn = make_inputs("small", "random")
+    v, l, a = _torch(value, loc, attn)
+    v, a = v.to(dtype), a.to(dtype)
+    ins = [t.clone().requires_grad_() for t in (v, l, a)]
+    out = DeformableAttentionFunction.apply(ins[0], shapes, ins[1], ins[2])
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(out.shape)).to(dtype)
+    got = torch.autograd.grad(out, ins, g)
+    ref_ins = [t.clone().requires_grad_() for t in (v, l, a)]
+    ref = deformable_attention_core(ref_ins[0], shapes, ref_ins[1], ref_ins[2])
+    want = torch.autograd.grad(ref, ref_ins, g)
+    assert torch.equal(out, ref)
+    for x, y, t in zip(got, want, (v, l, a)):
+        assert x.dtype == t.dtype and torch.equal(x, y)
 
 
 def test_dispatcher_sends_non_cpu_tensors_to_the_kernel():
@@ -157,6 +257,23 @@ def test_kernel_wrapper_refuses_before_launch(change, error, match):
         deformable_cuda.ms_deform_attn_fwd(**_kernel_args(**change))
 
 
+@pytest.mark.parametrize("change, error, match", [
+    (lambda g: g[:, :5].contiguous(), ValueError, "grad_out must be"),
+    (lambda g: g.bfloat16(), TypeError, "the output's dtype"),
+    (lambda g: g.transpose(0, 1).contiguous().transpose(0, 1), ValueError,
+     "grad_out must be contiguous"),
+    (lambda g: g, ValueError, "one CUDA device"),
+])
+def test_backward_wrapper_refuses_before_launch(change, error, match):
+    args = _kernel_args()
+    grad_out = torch.zeros((2, 80, 128))
+    before = (deformable_cuda.bwd_value_launches, deformable_cuda.bwd_loc_attn_launches)
+    with pytest.raises(error, match=match):
+        deformable_cuda.ms_deform_attn_bwd(*args.values(), change(grad_out))
+    assert (deformable_cuda.bwd_value_launches,
+            deformable_cuda.bwd_loc_attn_launches) == before
+
+
 def test_kernel_wrapper_refuses_more_than_four_levels():
     shapes = ((4, 4),) * 5
     value = torch.zeros((1, 80, 4, 32))
@@ -168,7 +285,7 @@ def test_kernel_wrapper_refuses_more_than_four_levels():
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
-    monkeypatch.setattr(deformable_cuda, "_fn", None)
+    monkeypatch.setattr(deformable_cuda, "_fns", {})
     monkeypatch.setattr(deformable_cuda, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(deformable_cuda.shutil, "which", lambda name: None)
     monkeypatch.setattr(deformable_cuda.os, "access", lambda *a: False)
