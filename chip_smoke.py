@@ -26,6 +26,19 @@ trainer's entry point (``emrt_tpu_torch.train.main``) on the flagship config
 with synthetic data at batch 8 with a save and an eval, checks the kernel
 launch counts, the finite losses and ``--resume``, then times train steps at
 batch 8 and 32 and profiles one batch-32 step by kernel category.
+Phase 4 drives the backbone variants at full width in bf16 with seeded
+random weights. For each variant yaml (CSwin, ViT-L, HRNet-W48, SegFormer-B4)
+it runs ``evaluate`` over 2 synthetic 1024^2 images (window batch 32, at
+the flagship's stride 171: the yamls' stride 320 over a 256 crop leaves
+pixels no window covers, ROADMAP.md F5), 3 train steps at batch 8, the
+loss and gradients through K1-K3 against the plain core (float32,
+BatchNorm frozen), and prints windows/s, ms per train step and peak memory;
+for ResNeXt50, ResNeSt50, resnet50c and resnet50 at output strides 16 and 8
+one forward and one train step; and the trainer's entry point for 4
+iterations on the ViT and HRNet yamls. Every path checks its kernel launch
+counts. Phases 1 and 3a also hold K1-K3 at the variants' level shapes:
+three 16^2 levels (ViT), three 32^2 (HRNet, ResNet OS8) and 32^2/16^2/16^2
+(ResNet OS16).
 
 Any failed check raises, and the script then exits non-zero without the
 final line. The second-to-last line is a JSON object describing each kernel;
@@ -33,6 +46,7 @@ the last line is {"ok": true, "device": {...}}. Nothing here imports JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import statistics
@@ -46,9 +60,18 @@ CONFIG = ROOT / "configs" / "EMRT" / "EMRT_256x256_160k_potsdam.yaml"
 BS, HEADS, HEAD_DIM, POINTS = 32, 8, 32, 6
 LEVELS_256 = ((32, 32), (16, 16), (8, 8))
 LEVELS_512 = ((64, 64), (32, 32), (16, 16))
+LEVELS_VIT = ((16, 16),) * 3                       # ViT's taps, all at stride 16
+LEVELS_32X3 = ((32, 32),) * 3                      # HRNet, ResNet at output stride 8
+LEVELS_OS16 = ((32, 32), (16, 16), (16, 16))       # ResNet at output stride 16
 SHAPES = (("encoder 256^2", LEVELS_256, 1344),
           ("decoder 256^2", LEVELS_256, 110),
-          ("encoder 512^2", LEVELS_512, 5376))
+          ("encoder 512^2", LEVELS_512, 5376),
+          ("encoder 16^2x3", LEVELS_VIT, 768),
+          ("decoder 16^2x3", LEVELS_VIT, 110),
+          ("encoder 32^2x3", LEVELS_32X3, 3072),
+          ("decoder 32^2x3", LEVELS_32X3, 110),
+          ("encoder 32/16/16", LEVELS_OS16, 1536),
+          ("decoder 32/16/16", LEVELS_OS16, 110))
 N_IMAGES, IMAGE_SIZE, WINDOW_BATCH = 8, 1024, 32
 # bf16 model logits through K1 against the plain core: K1's f32 sums differ
 # from the plain version's in order only, so some deformable outputs round
@@ -73,6 +96,18 @@ TRAIN_BS, TRAIN_ITERS, RESUME_ITERS = 8, 20, 24
 def check(cond: bool, what: str):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def _counts():
+    from emrt_tpu_torch.ops import deformable_cuda
+    return (deformable_cuda.launches, deformable_cuda.bwd_value_launches,
+            deformable_cuda.bwd_loc_attn_launches)
+
+
+def _reset_counts():
+    from emrt_tpu_torch.ops import deformable_cuda
+    deformable_cuda.launches = deformable_cuda.bwd_value_launches = 0
+    deformable_cuda.bwd_loc_attn_launches = 0
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -179,7 +214,7 @@ def phase1():
                 check(out.shape == ref.shape and out.dtype == value.dtype,
                       f"{name} output {tuple(out.shape)} {out.dtype}")
                 check(bool(torch.isfinite(out).all()), f"{name} non-finite output")
-                print(f"phase 1: {name:14s} {str(dtype)[6:]:8s} {loc_set:13s} "
+                print(f"phase 1: {name:16s} {str(dtype)[6:]:8s} {loc_set:13s} "
                       f"max|K1-plain| {err:.3e} (tol {tol:.3e}, max|plain| {scale:.3e})")
                 check(err <= tol, f"{name} {dtype} {loc_set}: error {err} > {tol}")
                 max_err = max(max_err, err)
@@ -187,7 +222,7 @@ def phase1():
             k_ms = cuda_ms(lambda: deformable_cuda.ms_deform_attn_fwd(value, levels, loc, attn))
             p_ms = cuda_ms(lambda: deformable_attention_core(value, levels, loc, attn))
             rows.append((name, dtype, k_ms, p_ms))
-            print(f"phase 1: {name:14s} {str(dtype)[6:]:8s} time K1 {k_ms:.4f} ms, "
+            print(f"phase 1: {name:16s} {str(dtype)[6:]:8s} time K1 {k_ms:.4f} ms, "
                   f"plain {p_ms:.4f} ms (median of 20, CUDA events)")
 
     # refusals that need a CUDA tensor (the device-free ones are CPU tests)
@@ -342,7 +377,7 @@ def phase3a():
                     kernel = "K2" if what == "value" else "K3"
                     max_err[kernel] = max(max_err[kernel], err)
                     errs.append(f"{what} {err:.2e}/{scale:.2e}")
-                print(f"phase 3a: {name:14s} {str(dtype)[6:]:8s} {loc_set:13s} "
+                print(f"phase 3a: {name:16s} {str(dtype)[6:]:8s} {loc_set:13s} "
                       f"max|kernel-plain| / max|plain|: {', '.join(errs)}")
 
     # times per call shape and dtype; the JSON line takes the encoder bf16 call
@@ -361,15 +396,16 @@ def phase3a():
                                                    retain_graph=True)
 
             # K2's time includes zeroing its f32 buffer and the cast to value's dtype
-            t = {"K2": cuda_ms(lambda: deformable_cuda.ms_deform_attn_bwd_value(*args)),
-                 "K3": cuda_ms(lambda: deformable_cuda.ms_deform_attn_bwd_loc_attn(*args)),
-                 "bwd": cuda_ms(lambda: deformable_cuda.ms_deform_attn_bwd(*args)),
-                 "plain K2": cuda_ms(plain((0,))), "plain K3": cuda_ms(plain((1, 2))),
-                 "plain bwd": cuda_ms(plain((0, 1, 2)))}
+            ms = functools.partial(cuda_ms, reps=10, warmup=2)
+            t = {"K2": ms(lambda: deformable_cuda.ms_deform_attn_bwd_value(*args)),
+                 "K3": ms(lambda: deformable_cuda.ms_deform_attn_bwd_loc_attn(*args)),
+                 "bwd": ms(lambda: deformable_cuda.ms_deform_attn_bwd(*args)),
+                 "plain K2": ms(plain((0,))), "plain K3": ms(plain((1, 2))),
+                 "plain bwd": ms(plain((0, 1, 2)))}
             times[name, dtype] = t
             del out, ins
-            print(f"phase 3a: {name:14s} {str(dtype)[6:]:8s} bs {BS} backward (median of "
-                  f"20, CUDA events): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
+            print(f"phase 3a: {name:16s} {str(dtype)[6:]:8s} bs {BS} backward (median of "
+                  f"10, CUDA events): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
     times = times[SHAPES[0][0], torch.bfloat16]
     return times, max_err
 
@@ -398,22 +434,20 @@ def _model_grads(model, images, labels, loss_fn, use_kernel, dtype, train_bn):
     BatchNorm on batch statistics (``train_bn``) or frozen; returns (loss,
     all gradients flat)."""
     import torch
-    from emrt_tpu_torch.ops import deformable_cuda
     _set_kernel_and_dropout(model, use_kernel=use_kernel)
     model.train(train_bn)
     model.dtype = dtype
     model.zero_grad(set_to_none=True)
-    counts = (deformable_cuda.launches, deformable_cuda.bwd_value_launches,
-              deformable_cuda.bwd_loc_attn_launches)
+    before = _counts()
     loss = loss_fn(list(model(images)), labels)
     loss.backward()
     torch.cuda.synchronize()
-    delta = [c1 - c0 for c0, c1 in zip(counts, (
-        deformable_cuda.launches, deformable_cuda.bwd_value_launches,
-        deformable_cuda.bwd_loc_attn_launches))]
+    delta = [c1 - c0 for c0, c1 in zip(before, _counts())]
     check(delta == ([6, 6, 6] if use_kernel else [0, 0, 0]),
           f"use_kernel={use_kernel}: K1/K2/K3 launches {delta}")
-    grads = torch.cat([p.grad.flatten() for p in model.parameters()])
+    # a parameter no path reads (CSwin's and ViT's tap-0 LayerNorm) has no grad
+    grads = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).flatten()
+                       for p in model.parameters()])
     check(bool(torch.isfinite(grads).all()),
           f"non-finite gradients (use_kernel={use_kernel}, {dtype})")
     return loss.item(), grads
@@ -460,14 +494,9 @@ def phase3c(card):
     import torch
     from emrt_tpu_torch.losses import get_loss_function
     from emrt_tpu_torch.models import get_model
-    from emrt_tpu_torch.ops import deformable_cuda
     from emrt_tpu_torch.solver import get_optimizer, get_scheduler
     from emrt_tpu_torch.train import main as train_main
     from emrt_tpu_torch.train import make_train_step
-
-    def counts():
-        return (deformable_cuda.launches, deformable_cuda.bwd_value_launches,
-                deformable_cuda.bwd_loc_attn_launches)
 
     with tempfile.TemporaryDirectory() as save_dir:
         common = ["--config", str(CONFIG), "--device", "cuda", "--seed", "0",
@@ -475,13 +504,12 @@ def phase3c(card):
                   "TRAIN.DTYPE", "bfloat16", "SAVE_DIR", save_dir,
                   "LOGGING_INFO_FREQ", "5", "SAVE_FREQ_CHECKPOINT", str(TRAIN_ITERS),
                   "VALIDATE_FREQ", str(TRAIN_ITERS)]
-        deformable_cuda.launches = deformable_cuda.bwd_value_launches = 0
-        deformable_cuda.bwd_loc_attn_launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         first = train_main(["--iters", str(TRAIN_ITERS), *common])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches = counts()
+        launches = _counts()
         steps, forwards = first["steps"], first["eval_forwards"]
         print(f"phase 3c: train.main {TRAIN_ITERS} iters at bs {TRAIN_BS} with one save "
               f"and one eval ({forwards} eval forwards) in {train_s:.1f} s; window "
@@ -529,6 +557,219 @@ def phase3c(card):
               f"(median of 10, CUDA events; {card})")
     profile_step(lambda: step(batch))
     return launches, rows
+
+
+VARIANT_YAMLS = ("cswin", "vit", "hrnet", "segformer")   # EMRT_256x256_160k_potsdam_{v}.yaml
+# (name, config overrides, the encoder's levels at a 256^2 input)
+OTHER_BACKBONES = (("ResNeXt50", {"MODEL.ENCODER.TYPE": "resnext50"}, LEVELS_256),
+                   ("ResNeSt50", {"MODEL.ENCODER.TYPE": "resnest50"}, LEVELS_256),
+                   ("resnet50c", {"MODEL.ENCODER.TYPE": "resnet50c"}, LEVELS_256),
+                   ("resnet50 OS16", {"MODEL.OUTPUT_STRIDE": 16}, LEVELS_OS16),
+                   ("resnet50 OS8", {"MODEL.OUTPUT_STRIDE": 8}, LEVELS_32X3))
+VARIANT_IMAGES, VARIANT_STEPS = 2, 3
+
+
+def _variant_config(path, overrides=()):
+    from emrt_tpu_torch.config import get_config
+    cfg = get_config(str(path))
+    cfg.DATA.DATASET = "Synthetic"
+    cfg.TRAIN.DTYPE = "bfloat16"
+    cfg.merge_from_list([str(v) for kv in overrides for v in kv])
+    return cfg
+
+
+def _train_steps(model, cfg, n, gen):
+    """n train steps at TRAIN_BS on device batches; checks each launched K1,
+    K2 and K3 six times and that the losses are finite."""
+    import numpy as np
+    import torch
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
+    step = make_train_step(model, get_loss_function(cfg),
+                           get_optimizer(cfg, model, get_scheduler(cfg)))
+    batch = {"image": torch.randn((TRAIN_BS, 3, 256, 256), generator=gen, device="cuda"),
+             "label": torch.randint(0, cfg.DATA.NUM_CLASSES, (TRAIN_BS, 256, 256),
+                                    generator=gen, device="cuda")}
+    _reset_counts()
+    losses = torch.stack([step(batch) for _ in range(n)]).tolist()
+    launches = _counts()
+    check(launches == (6 * n,) * 3, f"{n} train steps launched K1/K2/K3 {launches}")
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    return step, batch, losses, launches
+
+
+def phase4_variant(variant, card):
+    """One variant yaml: evaluate, train steps, kernels against the plain core."""
+    import torch
+    from emrt_tpu_torch.data.datasets import SyntheticDataset
+    from emrt_tpu_torch.inference import build_val_transforms, evaluate
+    from emrt_tpu_torch.inference.slide import window_grid
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.models import get_model
+    path = CONFIG.with_name(f"EMRT_256x256_160k_potsdam_{variant}.yaml")
+    cfg = _variant_config(path)
+    stride = tuple(cfg.VAL.STRIDE_SIZE)
+    cfg.VAL.IMAGE_BASE_SIZE = IMAGE_SIZE
+    cfg.VAL.STRIDE_SIZE = [171, 171]
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        model = get_model(cfg).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    tag = f"phase 4: {path.name} ({model.variant}, {n_params / 1e6:.1f}M params)"
+    dataset = SyntheticDataset(build_val_transforms(cfg), num_samples=VARIANT_IMAGES,
+                               crop_size=(IMAGE_SIZE, IMAGE_SIZE),
+                               num_classes=cfg.DATA.NUM_CLASSES, mode="val", seed=0)
+    n_win = len(window_grid(IMAGE_SIZE, IMAGE_SIZE, (256, 256), (171, 171)))
+    finite, n_windows = [], []
+
+    def forward(images):
+        logits = model(images)[0]
+        finite.append(torch.isfinite(logits).all())
+        n_windows.append(images.shape[0])
+        return logits
+
+    with torch.inference_mode():
+        model(torch.randn((WINDOW_BATCH, 3, 256, 256), device="cuda"))   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        evaluate(forward, dataset, cfg, "cuda", window_batch=WINDOW_BATCH)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = _counts()[0]
+        eval_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    windows_s = sum(n_windows) / eval_s
+    print(f"{tag}: evaluate over {VARIANT_IMAGES} images of {IMAGE_SIZE}^2 ({n_win} windows "
+          f"each) at stride 171 (the yaml's {list(stride)} leaves pixels no window covers, "
+          f"F5): {len(finite)} forwards of {sum(n_windows)} windows (the val batch of "
+          f"{cfg.DATA.BATCH_SIZE_VAL} padded with copies), {launches} K1 launches, "
+          f"{windows_s:.1f} windows/s end to end incl. host data, peak memory "
+          f"{eval_gib:.2f} GiB ({card})")
+    check(len(finite) > 0 and launches == 6 * len(finite),
+          f"{variant}: K1 launches {launches} != 6 x {len(finite)} forwards")
+    check(all(bool(f) for f in finite), f"{variant}: non-finite logits")
+
+    with torch.device("cuda"):
+        plain = get_model(cfg, use_kernel=False).eval()
+    plain.load_state_dict(model.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.inference_mode():
+        windows = torch.randn((WINDOW_BATCH, 3, 256, 256), generator=gen, device="cuda")
+        out_k, out_p = model(windows)[0], plain(windows)[0]
+    err, scale = (out_k - out_p).abs().max().item(), out_p.abs().max().item()
+    print(f"{tag}: logits K1 vs plain core on {WINDOW_BATCH} windows: max abs diff "
+          f"{err:.4e}, max|logit| {scale:.4e} (tol {MODEL_RTOL} x max)")
+    check(err <= MODEL_RTOL * scale, f"{variant}: logits differ by {err} > {MODEL_RTOL} x {scale}")
+    del plain
+
+    # on the seeded weights, before any step, as phase 3b
+    images = torch.randn((TRAIN_BS, 3, 256, 256), generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.DATA.NUM_CLASSES, (TRAIN_BS, 256, 256), generator=gen,
+                           device="cuda")
+    loss_fn = get_loss_function(cfg)
+    loss_k, grads_k = _model_grads(model, images, labels, loss_fn, True, torch.float32, False)
+    loss_p, grads_p = _model_grads(model, images, labels, loss_fn, False, torch.float32, False)
+    rel = ((grads_k - grads_p).norm() / grads_p.norm()).item()
+    print(f"{tag}: float32 bs {TRAIN_BS}, BatchNorm frozen: loss kernels {loss_k:.7f} plain "
+          f"{loss_p:.7f}; all gradients |k-p|/|p| (L2) {rel:.3e} (tol {F32_GRAD_RTOL})")
+    check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p),
+          f"{variant}: loss through the kernels {loss_k} vs plain {loss_p}")
+    check(rel <= F32_GRAD_RTOL, f"{variant}: gradients differ by {rel} > {F32_GRAD_RTOL}")
+    model.dtype = torch.bfloat16
+    model.zero_grad(set_to_none=True)
+    _set_kernel_and_dropout(model, use_kernel=True)
+    del grads_k, grads_p
+
+    step, batch, losses, train_launches = _train_steps(model, cfg, VARIANT_STEPS, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(batch), reps=5, warmup=1)
+    train_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{tag}: {VARIANT_STEPS} train steps at bs {TRAIN_BS}, losses "
+          f"{[round(x, 4) for x in losses]}, launches K1/K2/K3 {train_launches}; train step "
+          f"bs {TRAIN_BS} bf16 256^2: {step_ms:.2f} ms (median of 5, CUDA events), peak "
+          f"memory {train_gib:.2f} GiB ({card})")
+
+    del model, step
+    torch.cuda.empty_cache()
+    return {"windows_s": windows_s, "step_ms": step_ms, "eval_gib": eval_gib,
+            "train_gib": train_gib,
+            "launches": (launches + train_launches[0], *train_launches[1:])}
+
+
+def phase4_backbone(name, overrides, levels):
+    """One full-width bf16 forward and one train step of a CNN backbone."""
+    import numpy as np
+    import torch
+    from emrt_tpu_torch.models import get_model
+    cfg = _variant_config(CONFIG, overrides.items())
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        model = get_model(cfg).eval()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    images = torch.randn((TRAIN_BS, 3, 256, 256), generator=gen, device="cuda")
+    with torch.inference_mode():
+        got = tuple(tuple(m.shape[2:]) for m in model._backbone_features(images[:1])[0])
+        check(got == levels, f"{name}: encoder levels {got}, expected {levels}")
+        _reset_counts()
+        main, aux = model(images)
+    launches = _counts()[0]
+    check(launches == 6, f"{name}: one forward launched K1 {launches} times")
+    check(tuple(main.shape) == (TRAIN_BS, cfg.DATA.NUM_CLASSES, 256, 256)
+          and bool(torch.isfinite(main).all() and torch.isfinite(aux).all()),
+          f"{name}: logits {tuple(main.shape)} not finite")
+    _, _, losses, train_launches = _train_steps(model, cfg, 1, gen)
+    print(f"phase 4: {name}: encoder levels {levels}; forward bs {TRAIN_BS} (K1 "
+          f"x{launches}) and one train step (loss {losses[0]:.4f}, K1/K2/K3 {train_launches})")
+    del model
+    torch.cuda.empty_cache()
+    return (launches + train_launches[0], *train_launches[1:])
+
+
+def phase4_trainer(variant):
+    """The trainer's entry point for 4 iterations on a variant yaml."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from emrt_tpu_torch.train import main as train_main
+    path = CONFIG.with_name(f"EMRT_256x256_160k_potsdam_{variant}.yaml")
+    iters = 4
+    with tempfile.TemporaryDirectory() as save_dir:
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = train_main(["--config", str(path), "--device", "cuda", "--seed", "0",
+                          "--iters", str(iters), "DATA.DATASET", "Synthetic",
+                          "DATA.BATCH_SIZE", str(TRAIN_BS), "TRAIN.DTYPE", "bfloat16",
+                          "SAVE_DIR", save_dir, "LOGGING_INFO_FREQ", "2"])
+        torch.cuda.synchronize()
+        launches = _counts()
+    steps, forwards = out["steps"], out["eval_forwards"]
+    print(f"phase 4: train.main {iters} iters on {path.name} at bs {TRAIN_BS} in "
+          f"{time.perf_counter() - t0:.1f} s: window losses "
+          f"{[round(x, 4) for x in out['losses']]}, mIoU {out['mious']}, {forwards} eval "
+          f"forwards; launches K1/K2/K3 {launches}")
+    check(steps == iters and out["last_iter"] == iters, f"ran {steps} steps")
+    check(len(out["losses"]) > 0 and all(np.isfinite(out["losses"])), f"losses {out['losses']}")
+    check(launches == (6 * (steps + forwards), 6 * steps, 6 * steps),
+          f"launches {launches} for {steps} steps and {forwards} eval forwards")
+    return launches
+
+
+def phase4(card):
+    """Returns (per-variant rows, K1/K2/K3 launches summed over phase 4's paths)."""
+    rows = {v: phase4_variant(v, card) for v in VARIANT_YAMLS}
+    counts = [r["launches"] for r in rows.values()]
+    counts += [phase4_backbone(*b) for b in OTHER_BACKBONES]
+    counts += [phase4_trainer(v) for v in ("vit", "hrnet")]
+    print(f"phase 4: per variant (bf16 256^2 windows, seeded random weights; {card}):")
+    for v, r in rows.items():
+        print(f"  {v:10s} evaluate {r['windows_s']:8.1f} windows/s (peak {r['eval_gib']:.2f} "
+              f"GiB), train step bs {TRAIN_BS} {r['step_ms']:8.2f} ms (peak "
+              f"{r['train_gib']:.2f} GiB)")
+    return rows, [sum(c[i] for c in counts) for i in range(3)]
 
 
 _CATEGORIES = (   # (category, substrings of a kernel's name), first match wins
@@ -604,6 +845,7 @@ def main():
     times, bwd_err = phase3a()
     phase3b()
     train_launches, _ = phase3c(card)
+    _, variant_launches = phase4(card)
     name, _, k_ms, p_ms = next(r for r in rows if r[0] == "encoder 256^2"
                                and r[1] == torch.bfloat16)
     timed_at = f"{name} bs {BS} bf16"
@@ -613,16 +855,19 @@ def main():
          "source": "emrt_tpu_torch/csrc/ms_deform_attn_fwd.cu",
          "replaces": "emrt_tpu/ops/deformable_pallas.py:50",
          "launches": launches, "launches_train": train_launches[0],
+         "launches_variants": variant_launches[0],
          "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
          "timed_at": timed_at, "card": card},
         {"name": "ms_deform_attn_bwd_value", "route": "cuda", "source": source,
          "replaces": "emrt_tpu/ops/deformable_pallas.py:200",
-         "launches": train_launches[1], "max_abs_err": bwd_err["K2"],
+         "launches": train_launches[1], "launches_variants": variant_launches[1],
+         "max_abs_err": bwd_err["K2"],
          "ms": times["K2"], "plain_ms": times["plain K2"], "timed_at": timed_at,
          "card": card},
         {"name": "ms_deform_attn_bwd_loc_attn", "route": "cuda", "source": source,
          "replaces": "emrt_tpu/ops/deformable_pallas.py:277",
-         "launches": train_launches[2], "max_abs_err": bwd_err["K3"],
+         "launches": train_launches[2], "launches_variants": variant_launches[2],
+         "max_abs_err": bwd_err["K3"],
          "ms": times["K3"], "plain_ms": times["plain K3"], "timed_at": timed_at,
          "card": card}]}))
     print(json.dumps({"ok": True, "device": {

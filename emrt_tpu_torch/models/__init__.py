@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``emrt_tpu/models/__init__.py``).
 
-Only EMRT with a ResNet backbone is ported so far; every other model name
-raises (the zoo is ROADMAP.md queue 1, M11).
+EMRT is ported with every backbone of the JAX package's EMRT dispatch
+(``models/emrt.py``); every other model name raises (the zoo is ROADMAP.md
+queue 1, M11).
 """
 from __future__ import annotations
 

@@ -1,24 +1,25 @@
-"""torchvision-style ResNet backbone at output stride 32 (counterpart of
-``emrt_tpu/models/backbones/resnet.py``; reference
-src/models/backbones/paddle_vision_resnet.py).
+"""ResNet backbones (counterpart of ``emrt_tpu/models/backbones/resnet.py``).
 
-Returns (c1, c2, c3, c4) at strides 4/8/16/32 in NCHW. Parameter names are
-the reference's: ``conv1``, ``bn1``, ``layer{s}.{b}.conv{j}/bn{j}`` and
-``downsample.{0,1}`` on the first block of each stage. The deep-stem
-``resnet50c`` and the dilated output strides 8/16 wait (ROADMAP.md queue 1,
-M3).
+Two reference variants:
+  * torchvision-style ``resnet18/34/50/101/152`` with the 7x7 stem
+    (reference src/models/backbones/paddle_vision_resnet.py);
+  * ``resnet50c``, the deep stem of three 3x3 convs (reference
+    src/models/backbones/resnet.py:107-252).
+Both take output stride 32, 16 or 8: the last stages trade their stride for
+dilation [1, 1] / [1, 2] / [2, 4].
+
+Returns (c1, c2, c3, c4) in NCHW. Parameter names are the reference's:
+``conv1`` (the deep stem's Sequential ``conv1.{0,1,3,4,6}``), ``bn1``,
+``layer{s}.{b}.conv{j}/bn{j}`` and ``downsample.{0,1}`` on the first block
+of each stage. ``ResNet`` also carries the ResNeXt and ResNeSt blocks
+(``resnext.py``).
 """
 from __future__ import annotations
 
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import BatchNorm2d, kaiming_normal_
-
-
-def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return kaiming_normal_(nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
-                                     bias=False))
+from ..layers import BatchNorm2d, conv2d
 
 
 def _bn(c: int) -> BatchNorm2d:
@@ -26,18 +27,18 @@ def _bn(c: int) -> BatchNorm2d:
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
-    return nn.Sequential(_conv(cin, cout, 1, stride), _bn(cout))
+    return nn.Sequential(conv2d(cin, cout, 1, stride), _bn(cout))
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, features: int, stride: int = 1,
+    def __init__(self, cin: int, features: int, stride: int = 1, dilation: int = 1,
                  downsample: bool = False):
         super().__init__()
-        self.conv1 = _conv(cin, features, 3, stride)
+        self.conv1 = conv2d(cin, features, 3, stride, dilation)
         self.bn1 = _bn(features)
-        self.conv2 = _conv(features, features, 3)
+        self.conv2 = conv2d(features, features, 3, 1, dilation)
         self.bn2 = _bn(features)
         self.downsample = _downsample(cin, features, stride) if downsample else None
 
@@ -51,14 +52,14 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, features: int, stride: int = 1,
+    def __init__(self, cin: int, features: int, stride: int = 1, dilation: int = 1,
                  downsample: bool = False):
         super().__init__()
-        self.conv1 = _conv(cin, features, 1)
+        self.conv1 = conv2d(cin, features, 1)
         self.bn1 = _bn(features)
-        self.conv2 = _conv(features, features, 3, stride)
+        self.conv2 = conv2d(features, features, 3, stride, dilation)
         self.bn2 = _bn(features)
-        self.conv3 = _conv(features, features * 4, 1)
+        self.conv3 = conv2d(features, features * 4, 1)
         self.bn3 = _bn(features * 4)
         self.downsample = (_downsample(cin, features * 4, stride)
                            if downsample else None)
@@ -71,23 +72,41 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
-class ResNet(nn.Module):
-    """Feature-pyramid ResNet; forward returns (c1, c2, c3, c4)."""
+# output stride -> (stride, dilation) of stages 3 and 4
+_STRIDES = {32: ((2, 1), (2, 1)), 16: ((2, 1), (1, 2)), 8: ((1, 2), (1, 4))}
 
-    def __init__(self, layers=(3, 4, 6, 3), block: str = "bottleneck"):
+
+class ResNet(nn.Module):
+    """Feature-pyramid ResNet; forward returns (c1, c2, c3, c4).
+
+    stem: None for the 7x7 conv, or the widths of a deep stem's three 3x3
+    convs (``conv1`` Sequential, its last BatchNorm is ``bn1``)."""
+
+    def __init__(self, layers=(3, 4, 6, 3), block=Bottleneck, stem=None,
+                 output_stride: int = 32):
         super().__init__()
-        block_cls = Bottleneck if block == "bottleneck" else BasicBlock
-        self.conv1 = kaiming_normal_(nn.Conv2d(3, 64, 7, 2, 3, bias=False))
-        self.bn1 = _bn(64)
-        cin = 64
-        for stage, (features, blocks) in enumerate(zip((64, 128, 256, 512), layers),
-                                                   start=1):
-            stride = 1 if stage == 1 else 2
-            # as the JAX package: every stage opens with a projected block
-            mods = [block_cls(cin, features, stride, downsample=True)]
-            cin = features * block_cls.expansion
-            mods += [block_cls(cin, features) for _ in range(1, blocks)]
-            setattr(self, f"layer{stage}", nn.Sequential(*mods))
+        if output_stride not in _STRIDES:
+            raise NotImplementedError(f"output_stride {output_stride}: the ResNet "
+                                      f"takes {sorted(_STRIDES)}")
+        if stem is None:
+            self.conv1 = conv2d(3, 64, 7, 2)
+            cin = 64
+        else:
+            a, b, cin = stem
+            self.conv1 = nn.Sequential(conv2d(3, a, 3, 2), _bn(a), nn.ReLU(inplace=True),
+                                       conv2d(a, b, 3), _bn(b), nn.ReLU(inplace=True),
+                                       conv2d(b, cin, 3))
+        self.bn1 = _bn(cin)
+        stages = ((1, 1), (2, 1), *_STRIDES[output_stride])
+        for s, (features, blocks, (stride, dilation)) in enumerate(
+                zip((64, 128, 256, 512), layers, stages), start=1):
+            # as the JAX package: every stage opens with a projected block,
+            # whose dilation is 1 for stage dilation 1 or 2 and 2 for 4
+            # (reference _make_layer)
+            mods = [block(cin, features, stride, 1 if dilation < 4 else 2, downsample=True)]
+            cin = features * block.expansion
+            mods += [block(cin, features, 1, dilation) for _ in range(1, blocks)]
+            setattr(self, f"layer{s}", nn.Sequential(*mods))
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
@@ -100,17 +119,17 @@ class ResNet(nn.Module):
 
 
 _DEPTHS = {
-    18: ((2, 2, 2, 2), "basic"),
-    34: ((3, 4, 6, 3), "basic"),
-    50: ((3, 4, 6, 3), "bottleneck"),
-    101: ((3, 4, 23, 3), "bottleneck"),
-    152: ((3, 8, 36, 3), "bottleneck"),
+    18: ((2, 2, 2, 2), BasicBlock),
+    34: ((3, 4, 6, 3), BasicBlock),
+    50: ((3, 4, 6, 3), Bottleneck),
+    101: ((3, 4, 23, 3), Bottleneck),
+    152: ((3, 8, 36, 3), Bottleneck),
 }
 
 
-def resnet(depth: int) -> ResNet:
+def resnet(depth: int, deep_stem: bool = False, output_stride: int = 32) -> ResNet:
     layers, block = _DEPTHS[depth]
-    return ResNet(layers=layers, block=block)
+    return ResNet(layers, block, (64, 64, 128) if deep_stem else None, output_stride)
 
 
 def backbone_channels(depth: int) -> list[int]:

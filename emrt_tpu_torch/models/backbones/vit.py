@@ -1,0 +1,115 @@
+"""Vision Transformer backbone as EMRT-ViT uses it (counterpart of
+``emrt_tpu/models/backbones/vit.py``; reference src/models/backbones/vit.py).
+
+Conv patch embed (VALID), the cls token, then the learned position table
+of 1 + (H/p)(W/p) rows, pre-norm blocks with fused-qkv attention, and the
+token maps at ``out_indices`` with the cls token dropped (NCHW). The table
+is made for one input size (``img_size``); interpolating it to another on
+load waits (ROADMAP.md queue 1, M6).
+
+Parameter names are the reference's (``vit_backbone_map``): EMRT holds
+``encoder.transformer``, with ``embeddings.{patch_embeddings,
+position_embeddings, cls_token}`` and ``encoder.layers.{i}.{attn_norm,
+attn.{qkv,out}, mlp_norm, mlp.{fc1,fc2}}``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..layers import Mlp, layer_norm, xavier_uniform_
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention, fused ``qkv`` (q, k, v column blocks) and
+    ``out``; the softmax in float32."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        for w in self.qkv.weight.data.chunk(3):
+            nn.init.xavier_uniform_(w)
+        nn.init.zeros_(self.qkv.bias)
+        self.out = xavier_uniform_(nn.Linear(dim, dim))
+
+    def forward(self, x):
+        b, n, c = x.shape
+        hd = c // self.num_heads
+        q, k, v = self.qkv(x).view(b, n, 3, self.num_heads, hd).unbind(2)
+        attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
+        attn = attn.float().softmax(-1).to(v.dtype)
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, c))
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.attn_norm = layer_norm(dim)
+        self.attn = Attention(dim, num_heads)
+        self.mlp_norm = layer_norm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x):
+        x = x + self.attn(self.attn_norm(x))
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class Embeddings(nn.Module):
+    def __init__(self, img_size, patch_size: int, dim: int):
+        super().__init__()
+        self.grid = (img_size[0] // patch_size, img_size[1] // patch_size)
+        self.patch_embeddings = xavier_uniform_(nn.Conv2d(3, dim, patch_size, patch_size))
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
+        self.position_embeddings = nn.Parameter(
+            nn.init.trunc_normal_(torch.empty(1, 1 + self.grid[0] * self.grid[1], dim),
+                                  std=0.02, a=-0.04, b=0.04))
+
+    def forward(self, x):
+        x = self.patch_embeddings(x)
+        if tuple(x.shape[2:]) != self.grid:
+            raise ValueError(f"input {tuple(x.shape[2:])} patches, position table for "
+                             f"{self.grid}: the ViT takes one input size")
+        x = x.flatten(2).transpose(1, 2)
+        cls = self.cls_token.expand(x.shape[0], -1, -1).to(x.dtype)
+        return torch.cat([cls, x], 1) + self.position_embeddings.to(x.dtype)
+
+
+class _Layers(nn.Module):
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+
+class VisionTransformer(nn.Module):
+    """forward(images) -> the token maps [b, D, H/p, W/p] at out_indices."""
+
+    def __init__(self, img_size=(256, 256), patch_size: int = 16, hidden_size: int = 1024,
+                 num_layers: int = 24, num_heads: int = 16, mlp_ratio: float = 4.0,
+                 out_indices=(9, 14, 19, 23)):
+        super().__init__()
+        self.out_indices = tuple(out_indices)
+        self.embeddings = Embeddings(img_size, patch_size, hidden_size)
+        self.encoder = _Layers(EncoderLayer(hidden_size, num_heads, mlp_ratio)
+                               for _ in range(num_layers))
+
+    def forward(self, x):
+        x = self.embeddings(x)
+        gh, gw = self.embeddings.grid
+        feats = []
+        for i, layer in enumerate(self.encoder.layers):
+            x = layer(x)
+            if i in self.out_indices:
+                feats.append(x[:, 1:].transpose(1, 2).reshape(x.shape[0], -1, gh, gw))
+        return feats
+
+
+class ViTEncoder(nn.Module):
+    """The reference's EMRT-ViT ``encoder``: the ViT as ``transformer``."""
+
+    def __init__(self, **kw):
+        super().__init__()
+        self.transformer = VisionTransformer(**kw)
+
+    def forward(self, x):
+        return self.transformer(x)

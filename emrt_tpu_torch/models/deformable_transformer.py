@@ -23,10 +23,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deformable import deformable_attention, deformable_attention_core
-from .layers import MultiHeadAttention, xavier_uniform_
+from .layers import NORM_EPS, MultiHeadAttention, layer_norm, xavier_uniform_
 from .position_encoding import encoder_reference_points, sine_position_embedding
-
-_NORM_EPS = 1e-6   # flax LayerNorm / GroupNorm default
 
 
 def _offset_bias_init(num_heads: int, num_levels: int, num_points: int) -> np.ndarray:
@@ -141,11 +139,11 @@ class EncoderLayer(nn.Module):
         for i in range(n_levels):   # ConvEnhance's convs, under the reference's names
             setattr(self, f"conv{i}", nn.Sequential(
                 xavier_uniform_(nn.Conv2d(d_model, d_model, 3, padding=1, bias=False)),
-                nn.GroupNorm(32, d_model, eps=_NORM_EPS)))
+                nn.GroupNorm(32, d_model, eps=NORM_EPS)))
         self.linear1 = xavier_uniform_(nn.Linear(d_model, dim_feedforward))
         self.linear2 = xavier_uniform_(nn.Linear(dim_feedforward, d_model))
-        self.norm1 = nn.LayerNorm(d_model, eps=_NORM_EPS)
-        self.norm2 = nn.LayerNorm(d_model, eps=_NORM_EPS)
+        self.norm1 = layer_norm(d_model)
+        self.norm2 = layer_norm(d_model)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, src, reference_points, spatial_shapes, pos_embed):
@@ -169,9 +167,9 @@ class DecoderLayer(nn.Module):
         self.cross_attn = MSDeformableAttention(d_model, n_head, n_levels, n_points)
         self.linear1 = xavier_uniform_(nn.Linear(d_model, dim_feedforward))
         self.linear2 = xavier_uniform_(nn.Linear(dim_feedforward, d_model))
-        self.norm1 = nn.LayerNorm(d_model, eps=_NORM_EPS)
-        self.norm2 = nn.LayerNorm(d_model, eps=_NORM_EPS)
-        self.norm3 = nn.LayerNorm(d_model, eps=_NORM_EPS)
+        self.norm1 = layer_norm(d_model)
+        self.norm2 = layer_norm(d_model)
+        self.norm3 = layer_norm(d_model)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, tgt, reference_points, memory, spatial_shapes, query_pos):
@@ -210,7 +208,7 @@ class EncoderDecoder(nn.Module):
         self.hidden_dim = hidden_dim
         self.input_proj = nn.ModuleList(
             nn.Sequential(xavier_uniform_(nn.Conv2d(c, hidden_dim, 1)),
-                          nn.GroupNorm(32, hidden_dim, eps=_NORM_EPS))
+                          nn.GroupNorm(32, hidden_dim, eps=NORM_EPS))
             for c in in_channels)
         self.level_embed = nn.Embedding(n_levels, hidden_dim)
         self.query_pos_embed = nn.Embedding(num_queries, hidden_dim)

@@ -1,21 +1,25 @@
 """EMRT: Enhancing Multiscale Representations with Transformer (flagship).
 
 Counterpart of ``emrt_tpu/models/emrt.py`` (reference
-src/models/paddle_EMRT.py:13-304) in NCHW: ResNet backbone, CNN spatial
-branch, pyramid-pooling tokens driving the deformable-attention
-encoder-decoder, enhanced feature pyramid (EFP), PSP-token re-broadcast,
+src/models/paddle_EMRT.py:13-304) in NCHW: a backbone, CNN spatial branch,
+pyramid-pooling tokens driving the deformable-attention encoder-decoder,
+enhanced feature pyramid (EFP), PSP-token re-broadcast,
 progressive-upsampling head and auxiliary FCN head. Attribute names are the
 reference's (``backbone``, ``spatial_branch``, ``psp_module``, ``model``,
 ``EFP``, ``cls_psp``, ``uphead``, ``auxlayer``), so its state-dict keys
 are Paddle's.
 
+Every backbone of the JAX package's EMRT dispatch: the ResNets (resnet18
+to resnet152, the deep-stem ``resnet50c``, output stride 32, 16 or 8),
+ResNeXt50 (64x4d), ResNeSt50, CSwin and ViT (``encoder``, with a LayerNorm
+per tap, ``layer_norms.{i}``), HRNet-W48 (its stages fused by upsample and
+concat, then ``input_proj.{i}``, stride-2 conv-BN-ReLUs to 256 channels)
+and the SegFormer-B4 MixViT (``backbone.backbone``).
+
 forward(images [n, 3, H, W]) -> (main_logits, aux_logits), both float32
 [n, num_classes, H, W]. With ``dtype=torch.bfloat16`` the body runs under
 ``torch.autocast``: convolutions and projections in bf16, norms and the
 attention softmax in float32.
-
-Only the ResNet backbones are ported; the other variants wait (ROADMAP.md
-queue 1, M10).
 """
 from __future__ import annotations
 
@@ -27,10 +31,15 @@ import torch.nn.functional as F
 
 from ..ops.pooling import adaptive_avg_pool
 from ..ops.resize import resize_bilinear
+from .backbones.cswin import CSwinTransformer
+from .backbones.hrnet import hrnet_w48
+from .backbones.mix_transformer import SegFormerEncoder
 from .backbones.resnet import _DEPTHS, backbone_channels, resnet
+from .backbones.resnext import resnest50, resnext50_64x4d
+from .backbones.vit import ViTEncoder
 from .decoders.fcn_head import FCNHead
 from .deformable_transformer import EncoderDecoder, tokens_to_levels
-from .layers import BatchNorm2d, ConvBNReLU, kaiming_normal_
+from .layers import BatchNorm2d, ConvBNReLU, kaiming_normal_, layer_norm
 
 
 class Conv2dBlock(nn.Module):
@@ -137,35 +146,78 @@ class UpHead(nn.Module):
 
 
 class EMRT(nn.Module):
-    """EMRT assembly with a ResNet backbone (reference :183-304)."""
+    """EMRT assembly (reference :183-304). The ``trans_*`` knobs shape CSwin,
+    the ``vit_*`` knobs and ``img_size`` (h, w) ViT, ``output_stride`` the
+    ResNets; the other backbones have fixed widths."""
 
     def __init__(self, num_classes: int = 6, backbone: str = "resnet50",
                  output_stride: int = 32, psp_scales: Sequence[int] = (1, 3, 6, 8),
                  num_encoder_layers: int = 4, num_decoder_layers: int = 2,
                  nhead: int = 8, num_points: int = 6, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 trans_embed_dim: int = 64, trans_depths: Sequence[int] = (1, 2, 21, 1),
+                 trans_heads: Sequence[int] = (2, 4, 8, 16),
+                 trans_splits: Sequence[int] = (1, 2, 7, 7), vit_hidden: int = 1024,
+                 vit_layers: int = 24, vit_heads: int = 16,
+                 vit_out_indices: Sequence[int] = (9, 14, 19, 23),
+                 img_size: Sequence[int] = (256, 256), dtype: torch.dtype = torch.float32):
         super().__init__()
-        name = backbone.lower()
-        depth = int(name[6:]) if name.startswith("resnet") and name[6:].isdigit() else None
-        if depth not in _DEPTHS:
-            raise NotImplementedError(
-                f"backbone {backbone}: the port has the torchvision-style resnet "
-                f"depths {sorted(_DEPTHS)} only; the other EMRT backbones are "
-                f"ROADMAP.md queue 1, M10 (resnet50c: M3)")
-        if output_stride != 32:
-            raise NotImplementedError(
-                f"output_stride {output_stride}: the dilated ResNet strides are "
-                f"ROADMAP.md queue 1, M3")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.dtype = dtype
         self.psp_scales = tuple(psp_scales)
-        channels = backbone_channels(depth)
-        self.backbone = resnet(depth)
+        # reference keys the forward never reads: Paddle registers tgt_embed
+        # (transformer_encoder_decoder.py:367-369, 469-471); the SegFormer
+        # wrapper's head is dead weight (segformer_paddleSeg.py:80-84)
+        self.pdparams_unused = ("model.tgt_embed.weight",)
+        name = backbone.lower()
+        if name.startswith("resnet") and name[6:].rstrip("c").isdigit():
+            depth = int(name[6:].rstrip("c"))
+            if depth not in _DEPTHS:
+                raise NotImplementedError(f"backbone {backbone}: no resnet depth {depth} "
+                                          f"(available: {sorted(_DEPTHS)})")
+            self.variant = "cnn"
+            self.backbone = resnet(depth, name.endswith("c"), output_stride)
+            channels = backbone_channels(depth)[1:]
+        elif name in ("resnext50", "resnest50"):
+            self.variant = "cnn"
+            self.backbone = resnext50_64x4d() if name == "resnext50" else resnest50()
+            channels = [512, 1024, 2048]
+        elif name == "cswintransformer":
+            self.variant = "taps"
+            self.encoder = CSwinTransformer(trans_embed_dim, trans_depths, trans_heads,
+                                            trans_splits)
+            taps = [trans_embed_dim * 2 ** i for i in range(len(trans_depths))]
+            self.layer_norms = nn.ModuleList(layer_norm(c) for c in taps)
+            channels = taps[1:]
+        elif name == "vit":
+            self.variant = "taps"
+            self.encoder = ViTEncoder(img_size=tuple(img_size), hidden_size=vit_hidden,
+                                      num_layers=vit_layers, num_heads=vit_heads,
+                                      out_indices=vit_out_indices)
+            n_taps = sum(0 <= i < vit_layers for i in vit_out_indices)
+            self.layer_norms = nn.ModuleList(layer_norm(vit_hidden) for _ in range(n_taps))
+            channels = [vit_hidden] * (n_taps - 1)
+        elif name == "hrnet":
+            self.variant = "hrnet"
+            self.backbone = hrnet_w48()
+            w = 48
+            # each stage's maps concatenated: w(1 + 2 + ...) channels
+            self.input_proj = nn.ModuleList(ConvBNReLU(c, 256, 3, stride=2)
+                                            for c in (3 * w, 7 * w, 15 * w))
+            channels, aux_channels = [256] * 3, 7 * w
+        elif name == "segformer_b4":
+            self.variant = "mit"
+            self.backbone = SegFormerEncoder("b4")
+            self.pdparams_unused += ("backbone.linear_",)
+            channels = [128, 320, 512]
+        else:
+            raise NotImplementedError(f"backbone {backbone}")
+        if self.variant != "hrnet":
+            aux_channels = channels[1]
         self.spatial_branch = SpatialBranch()
         self.psp_module = PyramidPoolingModule(self.psp_scales, 256)
         self.model = EncoderDecoder(
-            channels[1:], num_queries=sum(s * s for s in self.psp_scales),
+            channels, num_queries=sum(s * s for s in self.psp_scales),
             hidden_dim=256, nhead=nhead, num_encoder_layers=num_encoder_layers,
             num_decoder_layers=num_decoder_layers, num_encoder_points=num_points,
             num_decoder_points=num_points, dropout=dropout)
@@ -175,7 +227,7 @@ class EMRT(nn.Module):
             *ConvBNReLU(256 * (2 + len(self.psp_scales)), 512, 3),
             *ConvBNReLU(512, 256, 3), nn.Dropout(0.1))
         self.uphead = UpHead(num_classes)
-        self.auxlayer = FCNHead(channels[2], max(channels[2] // 4, 16), num_classes)
+        self.auxlayer = FCNHead(aux_channels, max(aux_channels // 4, 16), num_classes)
 
     def forward(self, images):
         with torch.autocast(images.device.type, dtype=torch.bfloat16,
@@ -183,10 +235,27 @@ class EMRT(nn.Module):
             main, aux = self._forward(images)
         return main.float(), aux.float()
 
+    def _backbone_features(self, x):
+        """(three level maps for the encoder-decoder, the aux head's input)."""
+        if self.variant == "cnn":
+            _, c2, c3, c4 = self.backbone(x)
+            return [c2, c3, c4], c3
+        if self.variant == "taps":
+            # tap 0's norm exists, as in the reference, but feeds nothing
+            feats = [self.layer_norms[i](f.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                     for i, f in enumerate(self.encoder(x)) if i > 0]
+            return feats, feats[1]
+        if self.variant == "hrnet":
+            _, *stages = self.backbone(x)
+            fused = [torch.cat([s[0]] + [resize_bilinear(t, s[0].shape[2:]) for t in s[1:]],
+                               dim=1) for s in stages]
+            return [proj(f) for proj, f in zip(self.input_proj, fused)], fused[1]
+        feats = self.backbone(x)
+        return feats[1:], feats[2]
+
     def _forward(self, x):
         bs = x.shape[0]
-        _, c2, c3, c4 = self.backbone(x)
-        x_fea = [c2, c3, c4]
+        x_fea, aux_feat = self._backbone_features(x)
         x_context = self.spatial_branch(x)                       # [bs, 256, H/8, W/8]
         x_psp = self.psp_module(x_context)
         x_trans, memory = self.model(x_fea, x_psp)
@@ -202,19 +271,35 @@ class EMRT(nn.Module):
             pooled = x_trans[:, idx:idx + s * s].transpose(1, 2).reshape(bs, -1, s, s)
             cat.append(resize_bilinear(pooled, ctx_hw, align_corners=True))
             idx += s * s
-        cat.append(x_fpn)
+        # ViT's taps are all at stride 16: the fused pyramid goes to the 1/8
+        # context grid (reference cswin_backbone.py:295-296)
+        cat.append(resize_bilinear(x_fpn, ctx_hw, align_corners=False))
         main = self.uphead(self.cls_psp(torch.cat(cat, dim=1)))
-        aux = resize_bilinear(self.auxlayer(c3), x.shape[2:], align_corners=True)
+        aux = resize_bilinear(self.auxlayer(aux_feat), x.shape[2:], align_corners=True)
         return main, aux
 
 
 def build_emrt(config, dtype=torch.float32) -> EMRT:
-    """Build EMRT from a config node (resnet backbones only)."""
+    """Build EMRT, any backbone variant, from a config node: MODEL.NAME
+    containing 'EMRT_CSwin' / 'EMRT_ViT' / 'EMRT_HRNet' selects that backbone
+    (reference registry, src/models/__init__.py:33-38), otherwise
+    MODEL.ENCODER.TYPE decides; MODEL.TRANS shapes CSwin and ViT."""
     name = config.MODEL.NAME
-    for variant in ("EMRT_CSwin", "EMRT_ViT", "EMRT_HRNet"):
-        if variant in name:
-            raise NotImplementedError(
-                f"model {name}: the {variant} backbone is ROADMAP.md queue 1, M10")
-    return EMRT(num_classes=config.DATA.NUM_CLASSES,
-                backbone=config.MODEL.ENCODER.TYPE,
-                output_stride=config.MODEL.OUTPUT_STRIDE, dtype=dtype)
+    backbone = config.MODEL.ENCODER.TYPE
+    for tag, variant in (("EMRT_CSwin", "CSwinTransformer"), ("EMRT_ViT", "ViT"),
+                         ("EMRT_HRNet", "HRNet")):
+        if tag in name:
+            backbone = variant
+            break
+    trans = config.MODEL.TRANS
+    heads = trans.NUM_HEADS
+    crop_w, crop_h = (int(v) for v in config.DATA.CROP_SIZE)
+    return EMRT(num_classes=config.DATA.NUM_CLASSES, backbone=backbone,
+                output_stride=config.MODEL.OUTPUT_STRIDE,
+                trans_embed_dim=trans.EMBED_DIM, trans_depths=tuple(trans.STAGE_DEPTHS),
+                trans_heads=tuple(heads) if isinstance(heads, (list, tuple)) else (2, 4, 8, 16),
+                trans_splits=tuple(trans.SPLIT_SIZES or (1, 2, 7, 7)),
+                vit_hidden=trans.HIDDEN_SIZE, vit_layers=trans.NUM_LAYERS or 24,
+                vit_heads=heads if isinstance(heads, int) else 16,
+                vit_out_indices=tuple(config.MODEL.ENCODER.OUT_INDICES),
+                img_size=(crop_h, crop_w), dtype=dtype)

@@ -26,17 +26,17 @@ def xavier_uniform_(layer):
     return layer
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose running variance follows flax's ``BatchNorm``.
+class _FlaxRunningVar:
+    """Running variance as flax's ``BatchNorm`` keeps it.
 
     In train mode both normalise with the biased batch variance, but torch
     moves ``running_var`` toward the unbiased one (n / (n - 1) larger, n =
-    N*H*W per channel; 8/7 for a 1x1 pooled map at batch 8) and flax toward
-    the biased one. torch's update goes into a copy ``new`` (autograd keeps
-    the tensor it was given for the backward, so that one must not change
-    afterwards), and the buffer becomes ``(1 - m) * old + m * var_biased``
-    = ``new - (new - (1 - m) * old) / n``. Eval mode and the state-dict keys
-    are torch's.
+    the values per channel: N*H*W of a map, N of a vector; 8/7 for a 1x1
+    pooled map at batch 8) and flax toward the biased one. torch's update
+    goes into a copy ``new`` (autograd keeps the tensor it was given for the
+    backward, so that one must not change afterwards), and the buffer
+    becomes ``(1 - m) * old + m * var_biased`` = ``new - (new - (1 - m) *
+    old) / n``. Eval mode and the state-dict keys are torch's.
     """
 
     def forward(self, x):
@@ -53,16 +53,89 @@ class BatchNorm2d(nn.BatchNorm2d):
         return out
 
 
+class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance follows flax's ``BatchNorm``."""
+
+
+class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` over [n, c] vectors whose running variance follows
+    flax's ``BatchNorm`` (ResNeSt's split attention)."""
+
+
+class Conv2dSame(nn.Conv2d):
+    """``nn.Conv2d`` with TF-style ``"SAME"`` padding (flax ``padding="SAME"``,
+    Paddle ``padding='same'``): out = ceil(in / stride), the padding split with
+    the odd pixel at the bottom and right. For kernel 3 and stride 2 on an
+    even map that is (0, 1), not (1, 1)."""
+
+    def forward(self, x):
+        pads = []
+        for size, k, s, d in zip(reversed(x.shape[2:]), reversed(self.kernel_size),
+                                 reversed(self.stride), reversed(self.dilation)):
+            total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size, 0)
+            pads += [total // 2, total - total // 2]
+        return self._conv_forward(F.pad(x, pads), self.weight, self.bias)
+
+
+def conv2d(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
+           padding=None, groups: int = 1, bias: bool = False) -> nn.Conv2d:
+    """Kaiming-initialised conv; padding None pads dilation * (kernel // 2) on
+    every side, "same" is TF-style (``Conv2dSame``), an int pads that."""
+    if padding == "same":
+        return kaiming_normal_(Conv2dSame(cin, cout, kernel, stride, 0, dilation,
+                                          groups, bias))
+    pad = dilation * (kernel // 2) if padding is None else padding
+    return kaiming_normal_(nn.Conv2d(cin, cout, kernel, stride, pad, dilation, groups, bias))
+
+
 class ConvBNReLU(nn.Sequential):
     """conv(k, no bias) + BatchNorm(eps 1e-5) + ReLU, as ``[0]``, ``[1]``, ``[2]``
-    (the reference's Sequential indices)."""
+    (the reference's Sequential indices). padding: as ``conv2d``."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1, padding=None):
         super().__init__(
-            kaiming_normal_(nn.Conv2d(in_channels, out_channels, kernel_size,
-                                      padding=kernel_size // 2, bias=False)),
+            conv2d(in_channels, out_channels, kernel_size, stride, dilation, padding),
             BatchNorm2d(out_channels, eps=1e-5),
             nn.ReLU(inplace=True))
+
+
+class Mlp(nn.Module):
+    """Transformer FFN: ``fc1`` -> GELU (tanh form, flax's ``nn.gelu``) ->
+    dropout -> ``fc2`` -> dropout."""
+
+    def __init__(self, dim: int, hidden: int, dropout: float = 0.0):
+        super().__init__()
+        self.fc1 = xavier_uniform_(nn.Linear(dim, hidden))
+        self.fc2 = xavier_uniform_(nn.Linear(hidden, dim))
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x):
+        x = self.dropout(F.gelu(self.fc1(x), approximate="tanh"))
+        return self.dropout(self.fc2(x))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: in training, zero each sample's branch with
+    probability ``rate`` and scale the kept ones by 1 / (1 - rate)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = x.new_empty((x.shape[0],) + (1,) * (x.dim() - 1)).bernoulli_(keep)
+        return x / keep * mask
+
+
+NORM_EPS = 1e-6   # flax LayerNorm / GroupNorm; Paddle's is 1e-5 (ROADMAP.md queue 3, Q1)
+
+
+def layer_norm(dim: int) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=NORM_EPS)
 
 
 class MultiHeadAttention(nn.Module):

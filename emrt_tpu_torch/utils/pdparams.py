@@ -25,9 +25,6 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# Paddle registers tgt_embed though the forward never reads it
-# (transformer_encoder_decoder.py:367-369, 469-471)
-_EXPECT_UNUSED = ("model.tgt_embed.weight",)
 _BN_STATS = (("_mean", "running_mean"), ("_variance", "running_var"))
 
 
@@ -69,23 +66,9 @@ def read_pdparams(path: str) -> Dict[str, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
-# EMRT-r50 key map: flax '/'-path -> (pdparams key, transform tag), copied
-# from the JAX package (pure Python)
+# EMRT key maps: flax '/'-path -> (pdparams key, transform tag), copied from
+# the JAX package (pure Python)
 # ---------------------------------------------------------------------------
-
-_RESNET50_DEPTHS = (3, 4, 6, 3)
-
-
-def _resnet_block_map():
-    """Flat Bottleneck_N index -> reference 'layer{i}.{j}'."""
-    table = {}
-    n = 0
-    for stage, depth in enumerate(_RESNET50_DEPTHS, start=1):
-        for block in range(depth):
-            table[n] = f"layer{stage}.{block}"
-            n += 1
-    return table
-
 
 def emrt_trunk_key_map(num_enc_layers: int = 4, num_dec_layers: int = 2):
     """EMRT trunk mapping shared by all backbone variants.
@@ -206,30 +189,45 @@ def emrt_trunk_key_map(num_enc_layers: int = 4, num_dec_layers: int = 2):
     return pmap, smap, fold
 
 
-def emrt_r50_key_map(num_enc_layers: int = 4, num_dec_layers: int = 2):
-    """EMRT-r50: trunk + torchvision-style resnet50 backbone
-    (paddle_vision_resnet.py)."""
-    pmap, smap, fold = emrt_trunk_key_map(num_enc_layers, num_dec_layers)
+def build_key_map(flat_p, model_name: str = "EMRT", encoder_type: str = "resnet50"):
+    """(pmap, smap, fold) of an EMRT: the trunk plus its backbone's map,
+    chosen as ``emrt_tpu/utils/pdparams.py::build_key_map`` chooses (MODEL.NAME
+    first, then the encoder type), with the CNN backbones the JAX package has
+    no map for (resnet50c, the other depths, ResNeXt50, ResNeSt50) under
+    ``cnn_backbone_map``."""
+    from . import pdparams_maps as M
 
-    def bn(flax_prefix: str, pd_prefix: str):
-        pmap[f"{flax_prefix}/scale"] = (f"{pd_prefix}.weight", "id")
-        pmap[f"{flax_prefix}/bias"] = (f"{pd_prefix}.bias", "id")
-        smap[f"{flax_prefix}/mean"] = (f"{pd_prefix}._mean", "id")
-        smap[f"{flax_prefix}/var"] = (f"{pd_prefix}._variance", "id")
-
-    pmap["backbone/Conv_0/kernel"] = ("backbone.conv1.weight", "conv")
-    bn("backbone/_BN_0/BatchNorm_0", "backbone.bn1")
-    for n, ref in _resnet_block_map().items():
-        base = f"backbone/Bottleneck_{n}"
-        for j in range(3):
-            pmap[f"{base}/Conv_{j}/kernel"] = (
-                f"backbone.{ref}.conv{j + 1}.weight", "conv")
-            bn(f"{base}/_BN_{j}/BatchNorm_0", f"backbone.{ref}.bn{j + 1}")
-        if ref.endswith(".0"):  # downsample on the first block of each stage
-            pmap[f"{base}/Conv_3/kernel"] = (
-                f"backbone.{ref}.downsample.0.weight", "conv")
-            bn(f"{base}/_BN_3/BatchNorm_0", f"backbone.{ref}.downsample.1")
-    return pmap, smap, fold
+    name = model_name or ""
+    enc = (encoder_type or "").lower()
+    if "EMRT" not in name:
+        raise NotImplementedError(f"model {model_name!r}: the port maps EMRT only; "
+                                  f"the zoo is ROADMAP.md queue 1, M11")
+    n_enc = sum(1 for k in flat_p if k.startswith("encoder_decoder/encoder_layer")
+                and k.endswith("norm1/scale"))
+    n_dec = sum(1 for k in flat_p if k.startswith("encoder_decoder/decoder_layer")
+                and k.endswith("norm1/scale"))
+    maps = emrt_trunk_key_map(n_enc, n_dec)
+    if "EMRT_CSwin" in name or enc == "cswintransformer":
+        backbone = M.cswin_backbone_map(flat_p, flax="backbone", pd="encoder")
+    elif "EMRT_ViT" in name or enc == "vit":
+        backbone = M.vit_backbone_map(flat_p, flax="backbone", pd="encoder.transformer")
+    elif "EMRT_HRNet" in name or enc == "hrnet":
+        backbone = M.hrnet_backbone_map(flat_p, flax="backbone", pd="backbone")
+        for i in range(3):   # strided pre-projections (hrnet_backbone.py:190-197)
+            M._conv_bn(*backbone[:2], f"input_pre{i}", f"input_proj.{i}.0",
+                       f"input_proj.{i}.1")
+    elif enc == "segformer_b4":
+        backbone = M.mixvit_backbone_map(flat_p, flax="backbone", pd="backbone.backbone")
+    elif enc.startswith("resnet") or enc in ("resnext50", "resnest50", ""):
+        backbone = M.cnn_backbone_map(flat_p, flax="backbone", pd="backbone")
+    else:
+        raise NotImplementedError(f"no .pdparams key map for EMRT backbone {encoder_type!r}")
+    if any(k.startswith("tap_norm") for k in flat_p):
+        for i in range(4):   # per-tap LayerNorms (cswin_backbone.py:236-251)
+            M._ln(backbone[0], f"tap_norm{i}", f"layer_norms.{i}")
+    for d, part in zip(maps, backbone):
+        d.update(part)
+    return maps
 
 
 # ---------------------------------------------------------------------------
@@ -250,23 +248,21 @@ def _pd_key(torch_key: str) -> str:
     return torch_key
 
 
-def state_dict_from_flax(flat_params, flat_stats) -> Dict[str, torch.Tensor]:
-    """The port's EMRT-r50 ``state_dict`` from the JAX package's parameters.
+def state_dict_from_flax(flat_params, flat_stats, model_name: str = "EMRT",
+                         encoder_type: str = "resnet50") -> Dict[str, torch.Tensor]:
+    """The port's EMRT ``state_dict`` from the JAX package's parameters.
 
-    flat_params / flat_stats: ``{'/'-joined flax path: array}`` of the JAX
-    EMRT-r50's params and batch_stats (any subset: keys the map does not
-    name are skipped). Inverts each tag of the JAX converter: conv HWIO ->
+    flat_params / flat_stats: ``{'/'-joined flax path: array}`` of a JAX
+    EMRT's params and batch_stats (any subset: keys the map does not name
+    are skipped); model_name / encoder_type: MODEL.NAME and
+    MODEL.ENCODER.TYPE, which pick the backbone's map (``build_key_map``). Inverts each tag of the JAX converter: conv HWIO ->
     OIHW; a Dense kernel [in, out] -> Linear [out, in]; the q/k/v kernels
     and biases -> the fused ``in_proj_weight`` / ``in_proj_bias``; the
     per-head ``out_proj`` kernel -> [out, in]. Where the JAX package folds
     an UpHead conv bias into its BN mean, the conv bias is 0 and the mean is
     taken as it is.
     """
-    n_enc = sum(1 for k in flat_params if k.startswith("encoder_decoder/encoder_layer")
-                and k.endswith("norm1/scale"))
-    n_dec = sum(1 for k in flat_params if k.startswith("encoder_decoder/decoder_layer")
-                and k.endswith("norm1/scale"))
-    pmap, smap, fold = emrt_r50_key_map(n_enc, n_dec)
+    pmap, smap, fold = build_key_map(flat_params, model_name, encoder_type)
     out: Dict[str, np.ndarray] = {}
     fused: Dict[str, list] = {}
     for flat, mapping in ((flat_params, pmap), (flat_stats, smap)):
@@ -277,6 +273,8 @@ def state_dict_from_flax(flat_params, flat_stats) -> Dict[str, torch.Tensor]:
             key = _torch_key(pdkey)
             if tag == "conv":
                 out[key] = a.transpose(3, 2, 0, 1)
+            elif tag == "pos_embed":     # the JAX converter interpolates on load
+                out[key] = a
             elif tag == "id":
                 out[key] = a.T if fkey.endswith("/kernel") and a.ndim == 2 else a
             elif tag == "out_heads":
@@ -291,7 +289,7 @@ def state_dict_from_flax(flat_params, flat_stats) -> Dict[str, torch.Tensor]:
     for stats_key, bias_key in fold.items():
         if stats_key in flat_stats:
             out[bias_key] = np.zeros(np.shape(flat_stats[stats_key]), np.float32)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
 
 
 def _transposed_keys(model: nn.Module) -> set:
@@ -311,7 +309,9 @@ def load_pdparams(model: nn.Module, pd: Dict[str, np.ndarray]) -> dict:
     """Load a Paddle-layout state dict (``read_pdparams`` output) into model.
 
     Returns a report {matched, missing, unused}; raises on a shape mismatch.
-    Tensors the model has but ``pd`` lacks keep their current values.
+    Tensors the model has but ``pd`` lacks keep their current values. Keys
+    starting with one of the model's ``pdparams_unused`` prefixes (weights
+    the reference registers but its forward never reads) are not reported.
     """
     transposed = _transposed_keys(model)
     target = model.state_dict()
@@ -332,5 +332,6 @@ def load_pdparams(model: nn.Module, pd: Dict[str, np.ndarray]) -> dict:
         new[key] = torch.from_numpy(np.ascontiguousarray(a))
         used.add(pd_key)
     model.load_state_dict(new, strict=False)
-    unused = sorted(k for k in pd if k not in used and k not in _EXPECT_UNUSED)
+    dead = tuple(getattr(model, "pdparams_unused", ()))
+    unused = sorted(k for k in pd if k not in used and not k.startswith(dead))
     return {"matched": len(used), "missing": missing, "unused": unused}

@@ -38,10 +38,10 @@ def device():
     return torch.device("cuda")
 
 
-def _inputs(device, dtype, loc_set, bs=2, len_q=1344, heads=8, points=6):
+def _inputs(device, dtype, loc_set, bs=2, len_q=1344, heads=8, points=6, levels=LEVELS):
     gen = torch.Generator(device=device).manual_seed(0)
-    n_lv = len(LEVELS)
-    len_v = sum(h * w for h, w in LEVELS)
+    n_lv = len(levels)
+    len_v = sum(h * w for h, w in levels)
     value = torch.randn((bs, len_v, heads, 32), generator=gen, device=device).to(dtype)
     attn = torch.randn((bs, len_q, heads, n_lv * points), generator=gen, device=device)
     attn = attn.softmax(-1).view(bs, len_q, heads, n_lv, points).to(dtype)
@@ -51,9 +51,9 @@ def _inputs(device, dtype, loc_set, bs=2, len_q=1344, heads=8, points=6):
     elif loc_set == "out of bounds":
         loc = torch.rand(shape, generator=gen, device=device) * 0.4 + 1.6
     else:
-        ref = encoder_reference_points(LEVELS, device=device)[:len_q]
+        ref = encoder_reference_points(levels, device=device)[:len_q]
         off = torch.from_numpy(_offset_bias_init(heads, n_lv, points)).to(device)
-        norm = torch.tensor([[w, h] for h, w in LEVELS], dtype=torch.float32,
+        norm = torch.tensor([[w, h] for h, w in levels], dtype=torch.float32,
                             device=device)
         loc = (ref[:, None, :, None, :] + off.view(heads, n_lv, points, 2)
                / norm[None, :, None, :]).expand(shape).contiguous()
@@ -84,10 +84,10 @@ def _tol(want, dtype):
     return 1e-5 * scale + 1e-6 if dtype == torch.float32 else 1e-2 * scale
 
 
-def plain_grads(value, loc, attn, grad_out):
+def plain_grads(value, loc, attn, grad_out, levels=LEVELS):
     """The plain core's autograd: (grad value, grad loc, grad attn)."""
     v, l, a = (t.detach().clone().requires_grad_() for t in (value, loc, attn))
-    out = deformable_attention_core(v, LEVELS, l, a)
+    out = deformable_attention_core(v, levels, l, a)
     return torch.autograd.grad(out, (v, l, a), grad_out)
 
 
@@ -106,6 +106,35 @@ def test_backward_kernels_match_plain_autograd(device, dtype, loc_set, len_q):
             deformable_cuda.bwd_loc_attn_launches) == (before[0] + 1, before[1] + 1)
     for g, w, t in zip(got, want, (value, loc, attn)):
         assert g.dtype == w.dtype == t.dtype and g.shape == w.shape == t.shape
+        if loc_set == "out of bounds":
+            assert not g.any() and not w.any()
+        else:
+            assert (g.float() - w.float()).abs().max().item() <= _tol(w, dtype)
+
+
+# the EMRT variants' levels at a 256^2 input: ViT's three stride-16 taps,
+# HRNet's and ResNet OS8's three 32^2 maps, ResNet OS16's 32^2/16^2/16^2
+VARIANT_LEVELS = {"16^2x3": ((16, 16),) * 3, "32^2x3": ((32, 32),) * 3,
+                  "32-16-16": ((32, 32), (16, 16), (16, 16))}
+
+
+@pytest.mark.parametrize("loc_set", ["random", "out of bounds", "on the grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("query", ["encoder", "decoder"])
+@pytest.mark.parametrize("levels", list(VARIANT_LEVELS.values()), ids=list(VARIANT_LEVELS))
+def test_kernels_at_the_variants_level_shapes(device, levels, query, dtype, loc_set):
+    """K1, K2 and K3 where levels repeat a size: the encoder's queries are
+    its tokens (Lq = Lv), the decoder's the 110 pooled ones."""
+    len_q = sum(h * w for h, w in levels) if query == "encoder" else 110
+    value, loc, attn = _inputs(device, dtype, loc_set, len_q=len_q, levels=levels)
+    grad_out = torch.randn((2, len_q, 256), device=device).to(dtype)
+    got = [deformable_cuda.ms_deform_attn_fwd(value, levels, loc, attn),
+           *deformable_cuda.ms_deform_attn_bwd(value, levels, loc, attn, grad_out)]
+    want = [deformable_attention_core(value, levels, loc, attn),
+            *plain_grads(value, loc, attn, grad_out, levels)]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
         if loc_set == "out of bounds":
             assert not g.any() and not w.any()
         else:

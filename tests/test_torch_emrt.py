@@ -154,10 +154,11 @@ def test_bf16_forward_runs_under_autocast():
 
 @pytest.mark.parametrize("overrides, match", [
     ({"MODEL.NAME": "SETR_MLA"}, "only EMRT is ported"),
-    ({"MODEL.NAME": "EMRT_CSwin"}, "M10"),
-    ({"MODEL.ENCODER.TYPE": "hrnet"}, "M10"),
-    ({"MODEL.ENCODER.TYPE": "resnet50c"}, "M10"),
-    ({"MODEL.OUTPUT_STRIDE": 16}, "M3"),
+    ({"MODEL.NAME": "UperNet_Swin"}, "M11"),
+    ({"MODEL.NAME": "Trans2Seg"}, "M11"),
+    ({"MODEL.ENCODER.TYPE": "swin"}, "backbone swin"),
+    ({"MODEL.ENCODER.TYPE": "resnet42"}, "no resnet depth 42"),
+    ({"MODEL.OUTPUT_STRIDE": 4}, "output_stride 4"),
 ])
 def test_get_model_refuses_what_is_not_ported(overrides, match):
     cfg = get_config()
