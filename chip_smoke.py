@@ -5,9 +5,10 @@
 
 Phase 0 requires a CUDA device, prints the software versions and the card's
 name and power limit, and builds the deformable-attention kernels (K1 the
-forward, K2 and K3 the backward) from ``emrt_tpu_torch/csrc``, one ``nvcc``
-per source, all at once. Phase 1 holds K1 against its plain PyTorch version
-at the flagship call shapes (bs 32; encoder Lq 1,344 and decoder Lq 110 over
+forward; the backward, one kernel for the TPU's K2 and K3) from
+``emrt_tpu_torch/csrc``, one ``nvcc`` per source, all at once, printing
+each kernel's registers and spills. Phase 1 holds K1 against its plain
+PyTorch version at the flagship call shapes (bs 32; encoder Lq 1,344 and decoder Lq 110 over
 levels 32^2, 16^2, 8^2; encoder Lq 5,376 over the 512^2 levels) with three
 location sets, checks the wrappers' refusals and that an input requiring
 grad goes through the autograd Function, and times both versions.
@@ -17,9 +18,11 @@ weights, sliding-window ``evaluate`` (crop 256, stride 171, window batch 32)
 over synthetic 1024^2 images, and checks that every model forward launched
 K1 six times, that the logits are finite, that mIoU lies in [0, 1] and that
 the logits through K1 match those through the plain core.
-Phase 3 drives the train path. 3a holds K2 and K3 against the plain
-version's autograd at phase 1's shapes and location sets and times them;
-3b holds the full-width model's loss and parameter gradients (batch 8,
+Phase 3 drives the train path. 3a holds the backward against the plain
+version's autograd at phase 1's shapes and location sets (and at bs 8, where
+the launch plan splits a (b, h) over blocks) and times it on random
+locations and on the grid at bs 32 and 8, at bs 8 also with the split the
+plan did not choose; 3b holds the full-width model's loss and parameter gradients (batch 8,
 dropout 0; float32 and bf16 with BatchNorm frozen, bf16 with BatchNorm on
 batch statistics) through K1-K3 against those through the plain core; 3c runs the
 trainer's entry point (``emrt_tpu_torch.train.main``) on the flagship config
@@ -31,12 +34,12 @@ random weights. For each variant yaml (CSwin, ViT-L, HRNet-W48, SegFormer-B4)
 it runs ``evaluate`` over 2 synthetic 1024^2 images (window batch 32, at
 the flagship's stride 171: the yamls' stride 320 over a 256 crop leaves
 pixels no window covers, ROADMAP.md F5), 3 train steps at batch 8, the
-loss and gradients through K1-K3 against the plain core (float32,
+loss and gradients through the kernels against the plain core (float32,
 BatchNorm frozen), and prints windows/s, ms per train step and peak memory;
 for ResNeXt50, ResNeSt50, resnet50c and resnet50 at output strides 16 and 8
 one forward and one train step; and the trainer's entry point for 4
 iterations on the ViT and HRNet yamls. Every path checks its kernel launch
-counts. Phases 1 and 3a also hold K1-K3 at the variants' level shapes:
+counts. Phases 1 and 3a also hold the kernels at the variants' level shapes:
 three 16^2 levels (ViT), three 32^2 (HRNet, ResNet OS8) and 32^2/16^2/16^2
 (ResNet OS16).
 
@@ -91,6 +94,8 @@ MODEL_RTOL = 2e-2
 # order); there the bound is a sanity bound (TRAIN_BN_GRAD_RTOL).
 F32_GRAD_RTOL, LOSS_RTOL, TRAIN_BN_GRAD_RTOL = 1e-4, 1e-3, 0.25
 TRAIN_BS, TRAIN_ITERS, RESUME_ITERS = 8, 20, 24
+# an H100 SXM's HBM rate and float32 peak outside the tensor cores (data sheet)
+HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 
 
 def check(cond: bool, what: str):
@@ -99,15 +104,37 @@ def check(cond: bool, what: str):
 
 
 def _counts():
+    """(forward launches, backward launches)"""
     from emrt_tpu_torch.ops import deformable_cuda
-    return (deformable_cuda.launches, deformable_cuda.bwd_value_launches,
-            deformable_cuda.bwd_loc_attn_launches)
+    return deformable_cuda.launches, deformable_cuda.bwd_launches
 
 
 def _reset_counts():
     from emrt_tpu_torch.ops import deformable_cuda
-    deformable_cuda.launches = deformable_cuda.bwd_value_launches = 0
-    deformable_cuda.bwd_loc_attn_launches = 0
+    deformable_cuda.launches = deformable_cuda.bwd_launches = 0
+
+
+def _valid_corners(levels, loc) -> float:
+    """How many corners of all the samples of ``loc`` lie inside their maps."""
+    import torch
+    n = 0.0
+    for lvl, (h, w) in enumerate(levels):
+        per_axis = []
+        for axis, size in ((0, w), (1, h)):
+            c0 = torch.floor(loc[..., lvl, :, axis] * size - 0.5)
+            per_axis.append(((c0 >= 0) & (c0 < size)).float()
+                            + ((c0 + 1 >= 0) & (c0 + 1 < size)).float())
+        n += (per_axis[0] * per_axis[1]).sum().item()
+    return n
+
+
+def bound(tensors, flops):
+    """The least time the card takes for work that reads or writes each of
+    ``tensors`` once and does ``flops`` float32 operations: (ms, "bytes" or
+    "operations"), whichever is larger."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -146,24 +173,29 @@ def phase0():
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     deformable_cuda.build()
-    print(f"phase 0: K1, K2, K3 built in {time.perf_counter() - t0:.1f} s")
+    print(f"phase 0: the forward and backward kernels built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    kernel = ""
     for line in deformable_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Function properties for" in line:   # the (mangled) kernel the next lines describe
+            kernel = line.split(" for ", 1)[1].strip()
+            kernel = kernel[kernel.rfind("ms_deform_attn_"):][:48]   # name and template args
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas: {kernel}: {line.strip()}")
     return card
 
 
-def _inputs(levels, len_q, dtype, loc_set, gen):
+def _inputs(levels, len_q, dtype, loc_set, gen, bs=BS):
     import torch
     from emrt_tpu_torch.models.deformable_transformer import _offset_bias_init
     from emrt_tpu_torch.models.position_encoding import encoder_reference_points
     dev = "cuda"
     len_v = sum(h * w for h, w in levels)
     n_lv = len(levels)
-    value = torch.randn((BS, len_v, HEADS, HEAD_DIM), generator=gen, device=dev).to(dtype)
-    attn = torch.randn((BS, len_q, HEADS, n_lv * POINTS), generator=gen, device=dev)
-    attn = attn.softmax(-1).view(BS, len_q, HEADS, n_lv, POINTS).to(dtype)
-    shape = (BS, len_q, HEADS, n_lv, POINTS, 2)
+    value = torch.randn((bs, len_v, HEADS, HEAD_DIM), generator=gen, device=dev).to(dtype)
+    attn = torch.randn((bs, len_q, HEADS, n_lv * POINTS), generator=gen, device=dev)
+    attn = attn.softmax(-1).view(bs, len_q, HEADS, n_lv, POINTS).to(dtype)
+    shape = (bs, len_q, HEADS, n_lv, POINTS, 2)
     if loc_set == "random":
         loc = torch.rand(shape, generator=gen, device=dev) * 1.2 - 0.1
     elif loc_set == "out of bounds":
@@ -221,7 +253,10 @@ def phase1():
             value, loc, attn = _inputs(levels, len_q, dtype, "random", gen)
             k_ms = cuda_ms(lambda: deformable_cuda.ms_deform_attn_fwd(value, levels, loc, attn))
             p_ms = cuda_ms(lambda: deformable_attention_core(value, levels, loc, attn))
-            rows.append((name, dtype, k_ms, p_ms))
+            # one FMA per channel and valid corner
+            k_bound = bound([value, loc, attn, deformable_cuda.ms_deform_attn_fwd(
+                value, levels, loc, attn)], 2 * HEAD_DIM * _valid_corners(levels, loc))
+            rows.append((name, dtype, k_ms, p_ms, k_bound))
             print(f"phase 1: {name:16s} {str(dtype)[6:]:8s} time K1 {k_ms:.4f} ms, "
                   f"plain {p_ms:.4f} ms (median of 20, CUDA events)")
 
@@ -341,73 +376,119 @@ def _plain_grads(value, levels, loc, attn, grad_out):
     return torch.autograd.grad(out, ins, grad_out)
 
 
+def _check_bwd(tag, value, levels, loc, attn, grad_out, loc_set):
+    """The backward against the plain version's autograd: max |kernel - plain|
+    per gradient, each within its bound; returns the largest error."""
+    import torch
+    from emrt_tpu_torch.ops import deformable_cuda
+    dtype = value.dtype
+    got = deformable_cuda.ms_deform_attn_bwd(value, levels, loc, attn, grad_out)
+    want = _plain_grads(value, levels, loc, attn, grad_out)
+    torch.cuda.synchronize()
+    errs, max_err = [], 0.0
+    for what, g, w, t in zip(("value", "loc", "attn"), got, want, (value, loc, attn)):
+        check(g.shape == t.shape and g.dtype == w.dtype == t.dtype,
+              f"{tag} grad {what} {tuple(g.shape)} {g.dtype}")
+        check(bool(torch.isfinite(g).all()), f"{tag} non-finite grad {what}")
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        if loc_set == "out of bounds":
+            tol = 0.0
+            check(scale == 0.0, f"{tag} plain grad {what} not 0 out of bounds")
+        elif dtype == torch.float32:
+            tol = 1e-5 * scale + 1e-6
+        else:
+            tol = 1e-2 * scale
+        check(err <= tol, f"{tag} {dtype} {loc_set} grad {what}: error {err} > {tol}")
+        max_err = max(max_err, err)
+        errs.append(f"{what} {err:.2e}/{scale:.2e}")
+    print(f"phase 3a: {tag:21s} {str(dtype)[6:]:8s} {loc_set:13s} "
+          f"max|kernel-plain| / max|plain|: {', '.join(errs)}")
+    return max_err
+
+
 def phase3a():
-    """K2 and K3 against the plain version's autograd; their times."""
+    """The fused backward against the plain version's autograd; its times."""
+    import torch
+    from emrt_tpu_torch.ops import deformable_cuda
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    max_err = 0.0
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # bs 8 (the yamls' batch): 64 (b, h) on 132 SMs, so the plan splits them
+    for name, levels, len_q, bs in [(*shape, BS) for shape in SHAPES] + [
+            ("encoder 256^2 bs 8", LEVELS_256, 1344, TRAIN_BS)]:
+        plan = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, HEADS, len_q, n_sms)
+        print(f"phase 3a: {name} bs {bs}: plan {plan}")
+        for dtype in (torch.float32, torch.bfloat16):
+            for loc_set in ("random", "out of bounds", "on the grid"):
+                value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs)
+                grad_out = torch.randn((bs, len_q, HEADS * HEAD_DIM), generator=gen,
+                                       device="cuda").to(dtype)
+                max_err = max(max_err, _check_bwd(name, value, levels, loc, attn, grad_out,
+                                                  loc_set))
+    return time_bwd(), max_err
+
+
+def time_bwd(plain=True, other_split=True):
+    """Times of the whole ``ms_deform_attn_bwd`` (any zero-fill and cast
+    included; median of 10 CUDA-event calls) at every SHAPES call, at bs 32
+    and at the yamls' bs 8, in both dtypes, on random locations and on the
+    grid, with its bytes' bound; where asked, the plain autograd's time and,
+    where the (b, h) are fewer than the SMs, the time with the other split
+    (one block per (b, h) where the plan splits, two where it does not; the
+    two timed in turns after one timing thrown away, each the mean of its
+    two medians).
+    Another commit's package that lacks the plan is timed with both off.
+    Returns {(name, bs, dtype): {"random": ms, ...}}."""
     import torch
     from emrt_tpu_torch.ops import deformable_cuda
     from emrt_tpu_torch.ops.deformable import deformable_attention_core
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    max_err = {"K2": 0.0, "K3": 0.0}
-    for name, levels, len_q in SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            for loc_set in ("random", "out of bounds", "on the grid"):
-                value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen)
-                grad_out = torch.randn((BS, len_q, HEADS * HEAD_DIM), generator=gen,
-                                       device="cuda").to(dtype)
-                got = deformable_cuda.ms_deform_attn_bwd(value, levels, loc, attn, grad_out)
-                want = _plain_grads(value, levels, loc, attn, grad_out)
-                torch.cuda.synchronize()
-                errs = []
-                for what, g, w, t in zip(("value", "loc", "attn"), got, want,
-                                         (value, loc, attn)):
-                    check(g.shape == t.shape and g.dtype == w.dtype == t.dtype,
-                          f"{name} grad {what} {tuple(g.shape)} {g.dtype}")
-                    check(bool(torch.isfinite(g).all()), f"{name} non-finite grad {what}")
-                    err = (g.float() - w.float()).abs().max().item()
-                    scale = w.float().abs().max().item()
-                    if loc_set == "out of bounds":
-                        tol = 0.0
-                        check(scale == 0.0, f"{name} plain grad {what} not 0 out of bounds")
-                    elif dtype == torch.float32:
-                        tol = 1e-5 * scale + 1e-6
-                    else:
-                        tol = 1e-2 * scale
-                    check(err <= tol, f"{name} {dtype} {loc_set} grad {what}: "
-                                      f"error {err} > {tol}")
-                    kernel = "K2" if what == "value" else "K3"
-                    max_err[kernel] = max(max_err[kernel], err)
-                    errs.append(f"{what} {err:.2e}/{scale:.2e}")
-                print(f"phase 3a: {name:16s} {str(dtype)[6:]:8s} {loc_set:13s} "
-                      f"max|kernel-plain| / max|plain|: {', '.join(errs)}")
-
-    # times per call shape and dtype; the JSON line takes the encoder bf16 call
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = functools.partial(cuda_ms, reps=10, warmup=2)
     times = {}
-    for name, levels, len_q in SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            value, loc, attn = _inputs(levels, len_q, dtype, "random", gen)
-            grad_out = torch.randn((BS, len_q, HEADS * HEAD_DIM), generator=gen,
-                                   device="cuda").to(dtype)
-            ins = [t.clone().requires_grad_() for t in (value, loc, attn)]
-            out = deformable_attention_core(ins[0], levels, ins[1], ins[2])
-            args = (value, levels, loc, attn, grad_out)
-
-            def plain(wrt):
-                return lambda: torch.autograd.grad(out, [ins[i] for i in wrt], grad_out,
-                                                   retain_graph=True)
-
-            # K2's time includes zeroing its f32 buffer and the cast to value's dtype
-            ms = functools.partial(cuda_ms, reps=10, warmup=2)
-            t = {"K2": ms(lambda: deformable_cuda.ms_deform_attn_bwd_value(*args)),
-                 "K3": ms(lambda: deformable_cuda.ms_deform_attn_bwd_loc_attn(*args)),
-                 "bwd": ms(lambda: deformable_cuda.ms_deform_attn_bwd(*args)),
-                 "plain K2": ms(plain((0,))), "plain K3": ms(plain((1, 2))),
-                 "plain bwd": ms(plain((0, 1, 2)))}
-            times[name, dtype] = t
-            del out, ins
-            print(f"phase 3a: {name:16s} {str(dtype)[6:]:8s} bs {BS} backward (median of "
-                  f"10, CUDA events): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
-    times = times[SHAPES[0][0], torch.bfloat16]
-    return times, max_err
+    for bs in (BS, TRAIN_BS):
+        for name, levels, len_q in SHAPES:
+            other = None
+            if other_split and bs * HEADS < n_sms:
+                plan = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, HEADS, len_q, n_sms)
+                other = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, HEADS, len_q, n_sms,
+                                                 splits=1 if plan.splits > 1 else 2)
+            for dtype in (torch.float32, torch.bfloat16):
+                t = {}
+                for loc_set in ("on the grid", "random"):
+                    value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs)
+                    grad_out = torch.randn((bs, len_q, HEADS * HEAD_DIM), generator=gen,
+                                           device="cuda").to(dtype)
+                    args = (value, levels, loc, attn, grad_out)
+                    mine = functools.partial(deformable_cuda.ms_deform_attn_bwd, *args)
+                    if other is None:
+                        t[loc_set] = ms(mine)
+                    else:   # in turns, after a timing thrown away: at the decoder calls
+                        # the first timing after new inputs read up to 25% slow
+                        theirs = functools.partial(mine, plan=other)
+                        ms(mine)
+                        a, b, c, d = ms(mine), ms(theirs), ms(theirs), ms(mine)
+                        t[loc_set], t[f"{loc_set}, splits {other.splits}"] = (a + d) / 2, (b + c) / 2
+                line = (f"random {t['random']:.4f} ms, on the grid {t['on the grid']:.4f} ms"
+                        + "".join(f", {k} {v:.4f} ms" for k, v in t.items() if "splits" in k))
+                if plain:
+                    ins = [x.clone().requires_grad_() for x in (value, loc, attn)]
+                    out = deformable_attention_core(ins[0], levels, ins[1], ins[2])
+                    t["plain"] = ms(lambda: torch.autograd.grad(out, ins, grad_out,
+                                                                retain_graph=True))
+                    del out, ins
+                    line += f", plain {t['plain']:.4f} ms"
+                # per channel and valid corner: an FMA into the dot product with
+                # grad_out, and a product and an add into the value gradient
+                t["bound"] = bound([*args[:1], *args[2:], *deformable_cuda.ms_deform_attn_bwd(
+                    *args)], 4 * HEAD_DIM * _valid_corners(levels, loc))
+                times[name, bs, dtype] = t
+                print(f"phase 3a: {name:16s} {str(dtype)[6:]:8s} bs {bs:2d} backward (median "
+                      f"of 10, CUDA events): {line}; bound {t['bound'][0]:.4f} ms "
+                      f"({t['bound'][1]}), {100 * t['bound'][0] / t['random']:.1f}% of it "
+                      f"on random locations")
+    return times
 
 
 def _train_config():
@@ -443,8 +524,8 @@ def _model_grads(model, images, labels, loss_fn, use_kernel, dtype, train_bn):
     loss.backward()
     torch.cuda.synchronize()
     delta = [c1 - c0 for c0, c1 in zip(before, _counts())]
-    check(delta == ([6, 6, 6] if use_kernel else [0, 0, 0]),
-          f"use_kernel={use_kernel}: K1/K2/K3 launches {delta}")
+    check(delta == ([6, 6] if use_kernel else [0, 0]),
+          f"use_kernel={use_kernel}: forward/backward launches {delta}")
     # a parameter no path reads (CSwin's and ViT's tap-0 LayerNorm) has no grad
     grads = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).flatten()
                        for p in model.parameters()])
@@ -454,7 +535,7 @@ def _model_grads(model, images, labels, loss_fn, use_kernel, dtype, train_bn):
 
 
 def phase3b():
-    """The full-width model's loss and gradients through K1-K3 against the
+    """The full-width model's loss and gradients through the kernels against the
     same weights through the plain core (batch 8, dropout 0)."""
     import torch
     from emrt_tpu_torch.losses import get_loss_function
@@ -514,14 +595,14 @@ def phase3c(card):
         print(f"phase 3c: train.main {TRAIN_ITERS} iters at bs {TRAIN_BS} with one save "
               f"and one eval ({forwards} eval forwards) in {train_s:.1f} s; window "
               f"losses {[round(x, 4) for x in first['losses']]}, mIoU {first['mious']}; "
-              f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}")
+              f"launches forward {launches[0]}, backward {launches[1]}")
         check(steps == TRAIN_ITERS and first["last_iter"] == TRAIN_ITERS,
               f"ran {steps} steps to iter {first['last_iter']}")
         check(len(first["losses"]) > 0 and all(np.isfinite(first["losses"])),
               f"losses {first['losses']}")
         check(len(first["mious"]) == 1 and 0.0 <= first["mious"][0] <= 1.0,
               f"mIoU {first['mious']}")
-        check(launches == (6 * (steps + forwards), 6 * steps, 6 * steps),
+        check(launches == (6 * (steps + forwards), 6 * steps),
               f"launches {launches} for {steps} steps and {forwards} eval forwards")
         ckpt = Path(save_dir) / "checkpoints" / f"iter_{TRAIN_ITERS}.pt"
         check(ckpt.exists() and (Path(save_dir) / "best_model.pt").exists(),
@@ -579,8 +660,8 @@ def _variant_config(path, overrides=()):
 
 
 def _train_steps(model, cfg, n, gen):
-    """n train steps at TRAIN_BS on device batches; checks each launched K1,
-    K2 and K3 six times and that the losses are finite."""
+    """n train steps at TRAIN_BS on device batches; checks each launched the
+    forward and the backward kernel six times and that the losses are finite."""
     import numpy as np
     import torch
     from emrt_tpu_torch.losses import get_loss_function
@@ -594,7 +675,7 @@ def _train_steps(model, cfg, n, gen):
     _reset_counts()
     losses = torch.stack([step(batch) for _ in range(n)]).tolist()
     launches = _counts()
-    check(launches == (6 * n,) * 3, f"{n} train steps launched K1/K2/K3 {launches}")
+    check(launches == (6 * n,) * 2, f"{n} train steps launched forward/backward {launches}")
     check(all(np.isfinite(losses)), f"train losses {losses}")
     return step, batch, losses, launches
 
@@ -688,7 +769,8 @@ def phase4_variant(variant, card):
     step_ms = cuda_ms(lambda: step(batch), reps=5, warmup=1)
     train_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{tag}: {VARIANT_STEPS} train steps at bs {TRAIN_BS}, losses "
-          f"{[round(x, 4) for x in losses]}, launches K1/K2/K3 {train_launches}; train step "
+          f"{[round(x, 4) for x in losses]}, launches forward/backward {train_launches}; "
+          f"train step "
           f"bs {TRAIN_BS} bf16 256^2: {step_ms:.2f} ms (median of 5, CUDA events), peak "
           f"memory {train_gib:.2f} GiB ({card})")
 
@@ -722,7 +804,8 @@ def phase4_backbone(name, overrides, levels):
           f"{name}: logits {tuple(main.shape)} not finite")
     _, _, losses, train_launches = _train_steps(model, cfg, 1, gen)
     print(f"phase 4: {name}: encoder levels {levels}; forward bs {TRAIN_BS} (K1 "
-          f"x{launches}) and one train step (loss {losses[0]:.4f}, K1/K2/K3 {train_launches})")
+          f"x{launches}) and one train step (loss {losses[0]:.4f}, forward/backward "
+          f"{train_launches})")
     del model
     torch.cuda.empty_cache()
     return (launches + train_launches[0], *train_launches[1:])
@@ -750,16 +833,17 @@ def phase4_trainer(variant):
     print(f"phase 4: train.main {iters} iters on {path.name} at bs {TRAIN_BS} in "
           f"{time.perf_counter() - t0:.1f} s: window losses "
           f"{[round(x, 4) for x in out['losses']]}, mIoU {out['mious']}, {forwards} eval "
-          f"forwards; launches K1/K2/K3 {launches}")
+          f"forwards; launches forward/backward {launches}")
     check(steps == iters and out["last_iter"] == iters, f"ran {steps} steps")
     check(len(out["losses"]) > 0 and all(np.isfinite(out["losses"])), f"losses {out['losses']}")
-    check(launches == (6 * (steps + forwards), 6 * steps, 6 * steps),
+    check(launches == (6 * (steps + forwards), 6 * steps),
           f"launches {launches} for {steps} steps and {forwards} eval forwards")
     return launches
 
 
 def phase4(card):
-    """Returns (per-variant rows, K1/K2/K3 launches summed over phase 4's paths)."""
+    """Returns (per-variant rows, forward/backward launches summed over phase 4's
+    paths)."""
     rows = {v: phase4_variant(v, card) for v in VARIANT_YAMLS}
     counts = [r["launches"] for r in rows.values()]
     counts += [phase4_backbone(*b) for b in OTHER_BACKBONES]
@@ -769,13 +853,12 @@ def phase4(card):
         print(f"  {v:10s} evaluate {r['windows_s']:8.1f} windows/s (peak {r['eval_gib']:.2f} "
               f"GiB), train step bs {TRAIN_BS} {r['step_ms']:8.2f} ms (peak "
               f"{r['train_gib']:.2f} GiB)")
-    return rows, [sum(c[i] for c in counts) for i in range(3)]
+    return rows, [sum(c[i] for c in counts) for i in range(2)]
 
 
 _CATEGORIES = (   # (category, substrings of a kernel's name), first match wins
     ("K1 deformable fwd", ("ms_deform_attn_fwd",)),
-    ("K2 deformable bwd value", ("ms_deform_attn_bwd_value",)),
-    ("K3 deformable bwd loc/attn", ("ms_deform_attn_bwd_loc_attn",)),
+    ("K2+K3 deformable bwd (fused)", ("ms_deform_attn_bwd",)),
     ("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
     ("layer / group norm", ("layer_norm", "group_norm", "GammaBeta", "RowwiseMoments",
                             "FusedParams")),
@@ -842,14 +925,14 @@ def main():
     card = phase0()
     rows, max_err = phase1()
     launches = phase2()
-    times, bwd_err = phase3a()
+    bwd_times, bwd_err = phase3a()
+    bwd = bwd_times[SHAPES[0][0], BS, torch.bfloat16]
     phase3b()
     train_launches, _ = phase3c(card)
     _, variant_launches = phase4(card)
-    name, _, k_ms, p_ms = next(r for r in rows if r[0] == "encoder 256^2"
-                               and r[1] == torch.bfloat16)
-    timed_at = f"{name} bs {BS} bf16"
-    source = "emrt_tpu_torch/csrc/ms_deform_attn_bwd.cu"
+    name, _, k_ms, p_ms, (k_bound, k_by) = next(
+        r for r in rows if r[0] == "encoder 256^2" and r[1] == torch.bfloat16)
+    timed_at = f"{name} bs {BS} bf16, random locations"
     print(json.dumps({"kernels": [
         {"name": "ms_deform_attn_fwd", "route": "cuda",
          "source": "emrt_tpu_torch/csrc/ms_deform_attn_fwd.cu",
@@ -857,19 +940,17 @@ def main():
          "launches": launches, "launches_train": train_launches[0],
          "launches_variants": variant_launches[0],
          "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
          "timed_at": timed_at, "card": card},
-        {"name": "ms_deform_attn_bwd_value", "route": "cuda", "source": source,
-         "replaces": "emrt_tpu/ops/deformable_pallas.py:200",
+        {"name": "ms_deform_attn_bwd", "route": "cuda",
+         "source": "emrt_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+         "replaces": "emrt_tpu/ops/deformable_pallas.py:200 "
+                     "emrt_tpu/ops/deformable_pallas.py:277",
          "launches": train_launches[1], "launches_variants": variant_launches[1],
-         "max_abs_err": bwd_err["K2"],
-         "ms": times["K2"], "plain_ms": times["plain K2"], "timed_at": timed_at,
-         "card": card},
-        {"name": "ms_deform_attn_bwd_loc_attn", "route": "cuda", "source": source,
-         "replaces": "emrt_tpu/ops/deformable_pallas.py:277",
-         "launches": train_launches[2], "launches_variants": variant_launches[2],
-         "max_abs_err": bwd_err["K3"],
-         "ms": times["K3"], "plain_ms": times["plain K3"], "timed_at": timed_at,
-         "card": card}]}))
+         "max_abs_err": bwd_err, "ms": bwd["random"], "ms_on_the_grid": bwd["on the grid"],
+         "ms_bs8": bwd_times[SHAPES[0][0], TRAIN_BS, torch.bfloat16]["random"],
+         "plain_ms": bwd["plain"], "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],
+         "library_ms": None, "timed_at": timed_at, "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,7 +13,8 @@ reference the kernels are held to, forward and backward (its autograd).
 ``deformable_attention`` is what the model calls: CPU tensors take the plain
 version, CUDA tensors take the kernels (``ops/deformable_cuda.py``) or the
 call raises: the forward kernel K1 alone without grad, and
-``DeformableAttentionFunction`` (K1 forward, K2 and K3 backward) with it.
+``DeformableAttentionFunction`` (K1 forward, the fused K2 and K3 backward)
+with it.
 """
 from __future__ import annotations
 
@@ -75,7 +76,7 @@ def deformable_attention_core(value, spatial_shapes, sampling_locations,
 
 
 class DeformableAttentionFunction(torch.autograd.Function):
-    """K1 forward, K2 and K3 backward: the counterpart of the JAX package's
+    """K1 forward, fused K2 and K3 backward: the counterpart of the JAX package's
     ``custom_vjp`` around ``deformable_attention_pallas``.
 
     apply(value, spatial_shapes, sampling_locations, attention_weights) ->

@@ -4,11 +4,11 @@ They skip without a CUDA device (the kernels have no CPU mode) and import no
 JAX, so they run on a GPU machine that has only PyTorch:
 ``python3 -m pytest tests/test_torch_cuda.py -q``. Each kernel is held to its
 plain PyTorch version on the same inputs (the forward to the plain core, the
-backward kernels to the core's autograd): max |kernel - plain| <=
-1e-5 x max|plain| + 1e-6 in float32 (the sums differ in order only; K2's
-atomics add in an order that changes from run to run) and <= 1e-2 x
-max|plain| in bfloat16 (one rounding of the output). Out of bounds, every
-output is exactly 0.
+backward kernel to the core's autograd): max |kernel - plain| <=
+1e-5 x max|plain| + 1e-6 in float32 (the sums differ in order only; the
+value gradient's atomics add in an order that changes from run to run) and
+<= 1e-2 x max|plain| in bfloat16 (one rounding of the output). Out of
+bounds, every output is exactly 0.
 """
 from __future__ import annotations
 
@@ -38,11 +38,12 @@ def device():
     return torch.device("cuda")
 
 
-def _inputs(device, dtype, loc_set, bs=2, len_q=1344, heads=8, points=6, levels=LEVELS):
+def _inputs(device, dtype, loc_set, bs=2, len_q=1344, heads=8, points=6, levels=LEVELS,
+            channels=32):
     gen = torch.Generator(device=device).manual_seed(0)
     n_lv = len(levels)
     len_v = sum(h * w for h, w in levels)
-    value = torch.randn((bs, len_v, heads, 32), generator=gen, device=device).to(dtype)
+    value = torch.randn((bs, len_v, heads, channels), generator=gen, device=device).to(dtype)
     attn = torch.randn((bs, len_q, heads, n_lv * points), generator=gen, device=device)
     attn = attn.softmax(-1).view(bs, len_q, heads, n_lv, points).to(dtype)
     shape = (bs, len_q, heads, n_lv, points, 2)
@@ -98,12 +99,11 @@ def test_backward_kernels_match_plain_autograd(device, dtype, loc_set, len_q):
     value, loc, attn = _inputs(device, dtype, loc_set, len_q=len_q)
     gen = torch.Generator(device=device).manual_seed(1)
     grad_out = torch.randn((2, len_q, 256), generator=gen, device=device).to(dtype)
-    before = (deformable_cuda.bwd_value_launches, deformable_cuda.bwd_loc_attn_launches)
+    before = deformable_cuda.bwd_launches
     got = deformable_cuda.ms_deform_attn_bwd(value, LEVELS, loc, attn, grad_out)
     want = plain_grads(value, loc, attn, grad_out)
     torch.cuda.synchronize()
-    assert (deformable_cuda.bwd_value_launches,
-            deformable_cuda.bwd_loc_attn_launches) == (before[0] + 1, before[1] + 1)
+    assert deformable_cuda.bwd_launches == before + 1
     for g, w, t in zip(got, want, (value, loc, attn)):
         assert g.dtype == w.dtype == t.dtype and g.shape == w.shape == t.shape
         if loc_set == "out of bounds":
@@ -123,8 +123,9 @@ VARIANT_LEVELS = {"16^2x3": ((16, 16),) * 3, "32^2x3": ((32, 32),) * 3,
 @pytest.mark.parametrize("query", ["encoder", "decoder"])
 @pytest.mark.parametrize("levels", list(VARIANT_LEVELS.values()), ids=list(VARIANT_LEVELS))
 def test_kernels_at_the_variants_level_shapes(device, levels, query, dtype, loc_set):
-    """K1, K2 and K3 where levels repeat a size: the encoder's queries are
-    its tokens (Lq = Lv), the decoder's the 110 pooled ones."""
+    """The forward and backward kernels where levels repeat a size: the
+    encoder's queries are its tokens (Lq = Lv), the decoder's the 110 pooled
+    ones."""
     len_q = sum(h * w for h, w in levels) if query == "encoder" else 110
     value, loc, attn = _inputs(device, dtype, loc_set, len_q=len_q, levels=levels)
     grad_out = torch.randn((2, len_q, 256), device=device).to(dtype)
@@ -139,6 +140,57 @@ def test_kernels_at_the_variants_level_shapes(device, levels, query, dtype, loc_
             assert not g.any() and not w.any()
         else:
             assert (g.float() - w.float()).abs().max().item() <= _tol(w, dtype)
+
+
+# where the backward's plan keeps gV: every level in shared memory, the one
+# level in global memory, or both; each with one block per (b, h) (write: 110
+# queries) and with a (b, h) split over blocks (accumulate: 1,024 queries,
+# the plan's split of 16 (b, h) over the SMs)
+ROUTES = {"shared": LEVELS, "global": ((64, 64),), "mixed": ((64, 64), (32, 32), (16, 16))}
+
+
+@pytest.mark.parametrize("loc_set", ["random", "on the grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["write", "accumulate"])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_backward_routes_of_the_value_gradient(device, route, mode, dtype, loc_set):
+    levels = ROUTES[route]
+    len_q = 110 if mode == "write" else 1024
+    plan = deformable_cuda.bwd_plan(
+        levels, 32, 2, 8, len_q, torch.cuda.get_device_properties(device).multi_processor_count,
+        splits=1 if mode == "write" else None)
+    offsets = plan.smem_offsets
+    assert plan.accumulate == (mode == "accumulate")
+    assert {"shared": min(offsets) >= 0, "global": max(offsets) < 0,
+            "mixed": min(offsets) < 0 <= max(offsets)}[route]
+    value, loc, attn = _inputs(device, dtype, loc_set, len_q=len_q, levels=levels)
+    grad_out = torch.randn((2, len_q, 256), device=device).to(dtype)
+    got = deformable_cuda.ms_deform_attn_bwd(value, levels, loc, attn, grad_out, plan=plan)
+    want = plain_grads(value, loc, attn, grad_out, levels)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= _tol(w, dtype)
+
+
+@pytest.mark.parametrize("mode", ["write", "accumulate"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_head_dim_64(device, dtype, mode):
+    """Two chunks of 32 channels per head: the backward's loop over chunks
+    (every EMRT yaml has head dim 32, so nothing else runs it)."""
+    len_q = 110 if mode == "write" else 1024
+    plan = deformable_cuda.bwd_plan(LEVELS, 64, 2, 4, len_q,
+                                    splits=1 if mode == "write" else 4)
+    value, loc, attn = _inputs(device, dtype, "random", len_q=len_q, heads=4, channels=64)
+    grad_out = torch.randn((2, len_q, 256), device=device).to(dtype)
+    got = [deformable_cuda.ms_deform_attn_fwd(value, LEVELS, loc, attn),
+           *deformable_cuda.ms_deform_attn_bwd(value, LEVELS, loc, attn, grad_out, plan=plan)]
+    want = [deformable_attention_core(value, LEVELS, loc, attn),
+            *plain_grads(value, loc, attn, grad_out)]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= _tol(w, dtype)
 
 
 def test_function_gradients_match_plain_version(device):

@@ -9,8 +9,9 @@ of float32 sums. Location sets: random in [-0.1, 1.1], all out of bounds
 rotated-grid init offsets). Its three gradients (autograd) are held to
 ``jax.vjp`` of the golden the same way, each within 1e-5 x its max; on the
 grid both take the one-sided derivative of the floor. The CUDA kernels'
-argument checks and the autograd Function's wiring run here before any
-launch; the kernels themselves are compared on the card.
+argument checks, the backward's launch plan and the autograd Function's
+wiring run here before any launch; the kernels themselves are compared on
+the card.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from emrt_tpu.ops.deformable import deformable_attention_core as jax_core  # noq
 from emrt_tpu.ops.deformable_pallas import deformable_attention_pallas  # noqa: E402
 from emrt_tpu_torch.models.deformable_transformer import _offset_bias_init  # noqa: E402
 from emrt_tpu_torch.models.position_encoding import encoder_reference_points  # noqa: E402
+import chip_smoke  # noqa: E402
 from emrt_tpu_torch.ops import deformable_cuda  # noqa: E402
 from emrt_tpu_torch.ops.deformable import (DeformableAttentionFunction,  # noqa: E402
                                            deformable_attention,
@@ -267,11 +269,32 @@ def test_kernel_wrapper_refuses_before_launch(change, error, match):
 def test_backward_wrapper_refuses_before_launch(change, error, match):
     args = _kernel_args()
     grad_out = torch.zeros((2, 80, 128))
-    before = (deformable_cuda.bwd_value_launches, deformable_cuda.bwd_loc_attn_launches)
+    before = deformable_cuda.bwd_launches
     with pytest.raises(error, match=match):
         deformable_cuda.ms_deform_attn_bwd(*args.values(), change(grad_out))
-    assert (deformable_cuda.bwd_value_launches,
-            deformable_cuda.bwd_loc_attn_launches) == before
+    assert deformable_cuda.bwd_launches == before
+
+
+@pytest.mark.parametrize("name", ["value", "grad_out", "sampling_locations"])
+def test_backward_wrapper_refuses_misaligned_tensors(name):
+    """The backward reads value and grad_out 16 bytes and a location 8 bytes
+    at a time: a contiguous view that starts 4 bytes off is refused before
+    launch."""
+    args = dict(_kernel_args(), grad_out=torch.zeros((2, 80, 128)))
+    t = args[name]
+    args[name] = torch.zeros(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    assert args[name].is_contiguous()
+    before = deformable_cuda.bwd_launches
+    with pytest.raises(ValueError, match=f"{name} must start at a multiple"):
+        deformable_cuda.ms_deform_attn_bwd(**args)
+    assert deformable_cuda.bwd_launches == before
+
+
+def test_backward_wrapper_refuses_a_plan_of_other_levels():
+    plan = deformable_cuda.bwd_plan(((8, 8),), 32, 2, 4, 80)
+    with pytest.raises(ValueError, match="the plan has 1 levels"):
+        deformable_cuda.ms_deform_attn_bwd(*_kernel_args().values(), torch.zeros((2, 80, 128)),
+                                           plan=plan)
 
 
 def test_kernel_wrapper_refuses_more_than_four_levels():
@@ -291,3 +314,61 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(deformable_cuda.os, "access", lambda *a: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         deformable_cuda.build()
+
+
+@pytest.mark.parametrize("batch", [32, 8, 2])
+@pytest.mark.parametrize("shape", chip_smoke.SHAPES, ids=[s[0] for s in chip_smoke.SHAPES])
+def test_bwd_plan_fits_shared_memory(shape, batch):
+    """At every call shape the smoke run drives: the levels' f32 gV tiles in
+    shared memory sit side by side within 227 KB, smallest levels first (the
+    same for f32 and bf16 values: the tiles are f32 for both), and the
+    query tiles cover Lq, split only while (b, h) are fewer than the SMs."""
+    _, levels, len_q = shape
+    plan = deformable_cuda.bwd_plan(levels, 32, batch, 8, len_q)
+    assert plan.smem_bytes <= 227 * 1024 == deformable_cuda.SMEM_PER_BLOCK
+    spans = sorted((off * 4, off * 4 + h * w * 32 * 4)
+                   for off, (h, w) in zip(plan.smem_offsets, levels) if off >= 0)
+    assert spans and spans[0][0] == 0 and spans[-1][1] == plan.smem_bytes
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    left_out = [h * w for off, (h, w) in zip(plan.smem_offsets, levels) if off < 0]
+    kept = [h * w for off, (h, w) in zip(plan.smem_offsets, levels) if off >= 0]
+    assert not left_out or min(left_out) >= max(kept)
+    assert plan.splits * plan.q_tile >= len_q > (plan.splits - 1) * plan.q_tile
+    assert plan.splits == 1 or batch * 8 * plan.splits <= deformable_cuda.H100_SMS
+
+
+def test_bwd_plan_sends_the_64x64_level_to_global_memory():
+    """At 512^2 the 64^2 level's tile (512 KB) does not fit; 32^2 and 16^2 do."""
+    plan = deformable_cuda.bwd_plan(((64, 64), (32, 32), (16, 16)), 32, 32, 8, 5376)
+    assert plan.smem_offsets[0] == -1 and min(plan.smem_offsets[1:]) >= 0
+    assert plan.smem_bytes == (32 * 32 + 16 * 16) * 32 * 4
+    assert plan.needs_buffer and not plan.accumulate
+
+
+def test_bwd_plan_keeps_every_flagship_level_in_shared_memory():
+    """32^2, 16^2 and 8^2 take 168 KB. At bs 32 one block owns each (b, h)
+    and writes gV once (no f32 buffer); at bs 8 two blocks share one."""
+    plan = deformable_cuda.bwd_plan(FLAGSHIP, 32, 32, 8, 1344)
+    assert min(plan.smem_offsets) >= 0 and plan.smem_bytes == 172_032
+    assert (plan.splits, plan.q_tile, plan.needs_buffer) == (1, 1344, False)
+    plan = deformable_cuda.bwd_plan(FLAGSHIP, 32, 8, 8, 1344)
+    assert (plan.splits, plan.q_tile, plan.accumulate) == (2, 672, True)
+    assert plan.ints() == (672, 1, 172_032, 10240, 2048, 0)
+
+
+def test_bwd_plan_takes_a_given_split():
+    """A given split overrides the plan's choice (the smoke run times both)."""
+    plan = deformable_cuda.bwd_plan(FLAGSHIP, 32, 8, 8, 1344, splits=1)
+    assert (plan.splits, plan.q_tile, plan.accumulate, plan.needs_buffer) == (1, 1344, False,
+                                                                              False)
+    plan = deformable_cuda.bwd_plan(FLAGSHIP, 32, 32, 8, 110, splits=2)
+    assert (plan.splits, plan.q_tile, plan.accumulate) == (2, 55, True)
+
+
+@pytest.mark.parametrize("batch, len_q, splits", [(32, 1344, 1), (16, 1344, 1), (8, 1344, 2),
+                                                  (8, 110, 1), (2, 1344, 6), (2, 5376, 8)])
+def test_bwd_plan_splits_a_head_only_to_fill_the_sms(batch, len_q, splits):
+    """Fewer (b, h) than the 132 SMs: as many blocks per (b, h) as fill
+    them, but none with fewer than 256 queries."""
+    plan = deformable_cuda.bwd_plan(FLAGSHIP, 32, batch, 8, len_q)
+    assert plan.splits == splits and plan.accumulate == (splits > 1)
