@@ -10,14 +10,21 @@ forward; the backward, one kernel for the TPU's K2 and K3) from
 each kernel's registers and spills. Phase 1 holds K1 against its plain
 PyTorch version at the flagship call shapes (bs 32; encoder Lq 1,344 and decoder Lq 110 over
 levels 32^2, 16^2, 8^2; encoder Lq 5,376 over the 512^2 levels) with three
-location sets, checks the wrappers' refusals and that an input requiring
-grad goes through the autograd Function, and times both versions.
+location sets, and at bs 8 (where the launch plan splits a (b, h) over
+blocks) also with the other staging choice (the encoder calls stage their
+value levels in shared memory, the decoder calls read them from global
+memory); it prints each plan,
+checks the wrappers' refusals and that an input requiring grad goes
+through the autograd Function. ``time_fwd`` then times K1 and its plain
+version at every call shape, bs 32 and 8, and K1's device time with the
+plan's own split and staging and with the ones it did not choose.
 Phase 2 drives the eval path: the full-width EMRT-R50 of
 configs/EMRT/EMRT_256x256_160k_potsdam.yaml in bf16 with seeded random
 weights, sliding-window ``evaluate`` (crop 256, stride 171, window batch 32)
 over synthetic 1024^2 images, and checks that every model forward launched
 K1 six times, that the logits are finite, that mIoU lies in [0, 1] and that
-the logits through K1 match those through the plain core.
+the logits through K1 match those through the plain core; it profiles one
+32-window forward by kernel category.
 Phase 3 drives the train path. 3a holds the backward against the plain
 version's autograd at phase 1's shapes and location sets (and at bs 8, where
 the launch plan splits a (b, h) over blocks) and times it on random
@@ -220,45 +227,61 @@ def _expect_raise(exc, fn, what):
     raise RuntimeError(f"check failed: {what} did not raise {exc.__name__}")
 
 
-def phase1():
+def _staging(plan):
+    return f"{plan.staged} staged" if plan.staged else "none staged"
+
+
+def _check_fwd(tag, value, levels, loc, attn, loc_set, plan=None):
+    """K1 against the plain version: max |K1 - plain| within its bound;
+    returns it."""
     import torch
     from emrt_tpu_torch.ops import deformable_cuda
-    from emrt_tpu_torch.ops.deformable import (deformable_attention,
-                                               deformable_attention_core)
+    from emrt_tpu_torch.ops.deformable import deformable_attention_core
+    dtype = value.dtype
+    out = deformable_cuda.ms_deform_attn_fwd(value, levels, loc, attn, plan=plan)
+    ref = deformable_attention_core(value, levels, loc, attn)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if loc_set == "out of bounds":
+        tol = 0.0
+        check(scale == 0.0, f"{tag} plain version not 0 out of bounds")
+    elif dtype == torch.float32:
+        tol = 1e-5 * scale + 1e-6
+    else:
+        tol = 1e-2 * scale
+    check(out.shape == ref.shape and out.dtype == value.dtype,
+          f"{tag} output {tuple(out.shape)} {out.dtype}")
+    check(bool(torch.isfinite(out).all()), f"{tag} non-finite output")
+    print(f"phase 1: {tag:21s} {str(dtype)[6:]:8s} {loc_set:13s} "
+          f"max|K1-plain| {err:.3e} (tol {tol:.3e}, max|plain| {scale:.3e})")
+    check(err <= tol, f"{tag} {dtype} {loc_set}: error {err} > {tol}")
+    return err
+
+
+def phase1():
+    """K1 against its plain version at every SHAPES call (bs 32, and bs 8
+    where the plan splits), and the wrappers' refusals."""
+    import torch
+    from emrt_tpu_torch.ops import deformable_cuda
+    from emrt_tpu_torch.ops.deformable import deformable_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, max_err = [], 0.0
-    for name, levels, len_q in SHAPES:
+    max_err = 0.0
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, levels, len_q, bs in [(*shape, BS) for shape in SHAPES] + [
+            ("encoder 256^2 bs 8", LEVELS_256, 1344, TRAIN_BS),
+            ("decoder 256^2 bs 8", LEVELS_256, 110, TRAIN_BS)]:
         for dtype in (torch.float32, torch.bfloat16):
+            plan = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, HEADS, len_q, n_sms)
+            print(f"phase 1: {name} bs {bs} {str(dtype)[6:]}: plan {plan}")
+            plans = [None] if bs == BS else [None, deformable_cuda.fwd_plan(
+                levels, HEAD_DIM, dtype, bs, HEADS, len_q, n_sms, stage=not plan.staged)]
             for loc_set in ("random", "out of bounds", "on the grid"):
-                value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen)
-                out = deformable_cuda.ms_deform_attn_fwd(value, levels, loc, attn)
-                ref = deformable_attention_core(value, levels, loc, attn)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                if loc_set == "out of bounds":
-                    tol = 0.0
-                    check(scale == 0.0, f"{name} plain version not 0 out of bounds")
-                elif dtype == torch.float32:
-                    tol = 1e-5 * scale + 1e-6
-                else:
-                    tol = 1e-2 * scale
-                check(out.shape == ref.shape and out.dtype == value.dtype,
-                      f"{name} output {tuple(out.shape)} {out.dtype}")
-                check(bool(torch.isfinite(out).all()), f"{name} non-finite output")
-                print(f"phase 1: {name:16s} {str(dtype)[6:]:8s} {loc_set:13s} "
-                      f"max|K1-plain| {err:.3e} (tol {tol:.3e}, max|plain| {scale:.3e})")
-                check(err <= tol, f"{name} {dtype} {loc_set}: error {err} > {tol}")
-                max_err = max(max_err, err)
-            value, loc, attn = _inputs(levels, len_q, dtype, "random", gen)
-            k_ms = cuda_ms(lambda: deformable_cuda.ms_deform_attn_fwd(value, levels, loc, attn))
-            p_ms = cuda_ms(lambda: deformable_attention_core(value, levels, loc, attn))
-            # one FMA per channel and valid corner
-            k_bound = bound([value, loc, attn, deformable_cuda.ms_deform_attn_fwd(
-                value, levels, loc, attn)], 2 * HEAD_DIM * _valid_corners(levels, loc))
-            rows.append((name, dtype, k_ms, p_ms, k_bound))
-            print(f"phase 1: {name:16s} {str(dtype)[6:]:8s} time K1 {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms (median of 20, CUDA events)")
+                value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs)
+                for other in plans:   # at bs 8 also with the other staging
+                    tag = name if other is None else f"{name}, {_staging(other)}"
+                    max_err = max(max_err, _check_fwd(tag, value, levels, loc, attn, loc_set,
+                                                      other))
 
     # refusals that need a CUDA tensor (the device-free ones are CPU tests)
     value, loc, attn = _inputs(LEVELS_256, 110, torch.bfloat16, "random", gen)
@@ -278,7 +301,81 @@ def phase1():
           and deformable_cuda.launches == before + 1,
           "a CUDA input that requires grad did not go through the Function and K1")
     print("phase 1: wrapper refusals OK; grad-requiring input through the Function")
-    return rows, max_err
+    return max_err
+
+
+def fwd_device_us(fn, reps: int = 20) -> float:
+    """K1's device time per call of ``fn`` (torch.profiler over ``reps``
+    calls, after one): the kernel's own time, without the host's. NaN where
+    three profiles in a row recorded no K1 launch (the profiler now and then
+    records no kernel at all)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                    if "ms_deform_attn_fwd" in e.key)
+        if total > 0:
+            return total / reps
+    return float("nan")
+
+
+def time_fwd():
+    """Times of the whole ``ms_deform_attn_fwd`` (median of 10 CUDA-event
+    calls) and of the plain version at every SHAPES call, at bs 32 and at the
+    yamls' bs 8, in both dtypes, on random locations and on the grid, with
+    its bytes' bound; and K1's device time (``fwd_device_us``) with the
+    plan's own choices and with two others: where the plan splits or the
+    (b, h) are fewer than the card's blocks, the other split (one block per
+    (b, h) where the plan splits, two where it does not), and the other staging (none staged where
+    the plan stages levels, the levels that fit where it stages none). The
+    plan's choices are judged by device time: the decoder-sized calls are
+    mostly host time, which the plan does not change.
+    Returns {(name, bs, dtype): {"random": ms, ...}}."""
+    import torch
+    from emrt_tpu_torch.ops import deformable_cuda
+    from emrt_tpu_torch.ops.deformable import deformable_attention_core
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = functools.partial(cuda_ms, reps=10, warmup=2)
+    times = {}
+    for bs in (BS, TRAIN_BS):
+        for name, levels, len_q in SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                plan = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, HEADS, len_q, n_sms)
+                plans = {"plan": plan}
+                if plan.splits > 1 or bs * HEADS < n_sms * plan.blocks_per_sm:
+                    split = 1 if plan.splits > 1 else 2
+                    plans[f"splits {split}"] = deformable_cuda.fwd_plan(
+                        levels, HEAD_DIM, dtype, bs, HEADS, len_q, n_sms, splits=split)
+                staging = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, HEADS, len_q,
+                                                   n_sms, stage=not plan.staged)
+                plans[_staging(staging)] = staging
+                t = {}
+                for loc_set in ("on the grid", "random"):
+                    value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs)
+                    args = (value, levels, loc, attn)
+                    mine = functools.partial(deformable_cuda.ms_deform_attn_fwd, *args)
+                    t[loc_set] = ms(mine)
+                    for key, p in plans.items():
+                        t[f"{loc_set}, {key} device"] = fwd_device_us(
+                            functools.partial(mine, plan=p)) / 1e3
+                t["plain"] = ms(lambda: deformable_attention_core(*args))
+                line = ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+                # one FMA per channel and valid corner
+                t["bound"] = bound([value, loc, attn, mine()],
+                                   2 * HEAD_DIM * _valid_corners(levels, loc))
+                times[name, bs, dtype] = t
+                print(f"time_fwd: {name:16s} {str(dtype)[6:]:8s} bs {bs:2d} K1 (median of 10, "
+                      f"CUDA events; device: torch.profiler, 20 calls): {line}; bound "
+                      f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), "
+                      f"{100 * t['bound'][0] / t['random']:.1f}% of it on random locations")
+    return times
 
 
 def phase2():
@@ -359,6 +456,8 @@ def phase2():
                                                      (171, 171))[:WINDOW_BATCH // bs]])
         out_k = model(windows)[0]
         out_p = plain(windows)[0]
+        profile_step(lambda: model(windows), f"phase 2: profile of one {windows.shape[0]}-"
+                     f"window eval forward")
     err = (out_k - out_p).abs().max().item()
     scale = out_p.abs().max().item()
     print(f"phase 2: model logits K1 vs plain core on {windows.shape[0]} windows: "
@@ -884,9 +983,10 @@ def kernel_category(key: str) -> str:
                 "other")
 
 
-def profile_step(fn):
-    """Device time of one step by kernel category (torch.profiler), and the
-    device's busy share of the step's wall time."""
+def profile_step(fn, what=f"phase 3c: profile of one bs-{BS} step"):
+    """Device time of one call of ``fn`` (a step, a forward) by kernel
+    category (torch.profiler), and the device's busy share of its wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -908,14 +1008,13 @@ def profile_step(fn):
         n_kernels += evt.count
     busy = sum(totals.values())
     if busy == 0:
-        print("phase 3c: profile: torch.profiler recorded no device time")
+        print(f"{what}: torch.profiler recorded no device time")
         return
-    print(f"phase 3c: profile of one bs-{BS} step: wall {wall_ms:.2f} ms, {n_kernels} "
-          f"kernels, device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}% of wall), "
-          f"by category:")
+    print(f"{what}: wall {wall_ms:.2f} ms, {n_kernels} kernels, device busy {busy:.2f} ms "
+          f"({100 * busy / wall_ms:.1f}% of wall), by category:")
     for cat, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:44s} {ms:9.3f} ms {100 * ms / busy:5.1f}%")
-    print("phase 3c: top kernels:")
+    print(f"{what}: top kernels:")
     for key, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {ms:9.3f} ms  {key[:110]}")
 
@@ -923,15 +1022,19 @@ def profile_step(fn):
 def main():
     import torch
     card = phase0()
-    rows, max_err = phase1()
+    max_err = phase1()
+    fwd_times = time_fwd()
     launches = phase2()
     bwd_times, bwd_err = phase3a()
     bwd = bwd_times[SHAPES[0][0], BS, torch.bfloat16]
     phase3b()
     train_launches, _ = phase3c(card)
     _, variant_launches = phase4(card)
-    name, _, k_ms, p_ms, (k_bound, k_by) = next(
-        r for r in rows if r[0] == "encoder 256^2" and r[1] == torch.bfloat16)
+    from emrt_tpu_torch.ops import deformable_cuda
+    name, levels, len_q = SHAPES[0]
+    fwd = fwd_times[name, BS, torch.bfloat16]
+    plan = deformable_cuda.fwd_plan(levels, HEAD_DIM, torch.bfloat16, BS, HEADS, len_q,
+                                    torch.cuda.get_device_properties(0).multi_processor_count)
     timed_at = f"{name} bs {BS} bf16, random locations"
     print(json.dumps({"kernels": [
         {"name": "ms_deform_attn_fwd", "route": "cuda",
@@ -939,9 +1042,10 @@ def main():
          "replaces": "emrt_tpu/ops/deformable_pallas.py:50",
          "launches": launches, "launches_train": train_launches[0],
          "launches_variants": variant_launches[0],
-         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-         "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
-         "timed_at": timed_at, "card": card},
+         "max_abs_err": max_err, "ms": fwd["random"], "ms_on_the_grid": fwd["on the grid"],
+         "ms_bs8": fwd_times[name, TRAIN_BS, torch.bfloat16]["random"],
+         "plain_ms": fwd["plain"], "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
+         "library_ms": None, "plan": str(plan), "timed_at": timed_at, "card": card},
         {"name": "ms_deform_attn_bwd", "route": "cuda",
          "source": "emrt_tpu_torch/csrc/ms_deform_attn_bwd.cu",
          "replaces": "emrt_tpu/ops/deformable_pallas.py:200 "

@@ -75,8 +75,6 @@
 // block per SM too few warps hide that. The gathers and those adds bound the
 // kernel together, far above the bytes' bound.
 
-#include <cstring>
-
 #include "ms_deform_attn_common.cuh"
 
 namespace {
@@ -95,24 +93,6 @@ struct Plan {
   int smem_bytes;             // dynamic shared memory: the tiles of the levels in it
   int smem_off[kMaxLevels];   // a level's f32 gV tile in shared memory (floats); -1: global
 };
-
-// Channels of value a lane holds: 16 bytes of them.
-template <typename T>
-constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-
-__device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
-
-// sum_j g[j] * v[j] over the 16 bytes v holds (4 f32 or 8 bf16)
-__device__ __forceinline__ float dot16(const uint4& v, const float (&g)[4]) {
-  return g[0] * __uint_as_float(v.x) + g[1] * __uint_as_float(v.y)
-         + g[2] * __uint_as_float(v.z) + g[3] * __uint_as_float(v.w);
-}
-__device__ __forceinline__ float dot16(const uint4& v, const float (&g)[8]) {
-  return g[0] * bf16_lo(v.x) + g[1] * bf16_hi(v.x) + g[2] * bf16_lo(v.y)
-         + g[3] * bf16_hi(v.y) + g[4] * bf16_lo(v.z) + g[5] * bf16_hi(v.z)
-         + g[6] * bf16_lo(v.w) + g[7] * bf16_hi(v.w);
-}
 
 // A lane's slice of a grad_out row in f32 (g), and the same with its entries
 // permuted as gs[j] = g[j ^ r] with static register indices.
@@ -141,16 +121,6 @@ __device__ __forceinline__ void load_g(const T* p, int r, float (&g)[N], float (
       }
     }
   }
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  memcpy(&u.x, &lo, 4);
-  memcpy(&u.y, &hi, 4);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 template <typename T, typename A, bool kOneChunk>

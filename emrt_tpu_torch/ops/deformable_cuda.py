@@ -2,7 +2,8 @@
 
 Two kernels stand for the three TPU kernels of ROADMAP.md queue 2:
 
-- K1, the forward: ``ms_deform_attn_fwd`` (``csrc/ms_deform_attn_fwd.cu``);
+- K1, the forward: ``ms_deform_attn_fwd`` (``csrc/ms_deform_attn_fwd.cu``),
+  launched as ``fwd_plan`` says;
 - K2 and K3, the gradients of value, of the locations and of the attention
   weights, in one fused pass: ``ms_deform_attn_bwd``
   (``csrc/ms_deform_attn_bwd.cu``), launched as ``bwd_plan`` says.
@@ -44,16 +45,31 @@ MAX_LEVELS = 4
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry -> (library, argtypes); every entry ends with
-# (..., int n_levels, int n_points, const int* level_hw, void* stream)
-_SHAPE_ARGS = [_INT] * 9 + [ctypes.POINTER(_INT), _PTR]
+# (..., int n_levels, int n_points, const int* level_hw, const int* plan,
+# void* stream)
+_SHAPE_ARGS = [_INT] * 9 + [ctypes.POINTER(_INT), ctypes.POINTER(_INT), _PTR]
 _ENTRIES = {
     "ms_deform_attn_fwd": ("ms_deform_attn_fwd", [_PTR] * 4 + _SHAPE_ARGS),
-    # ..., level_hw, const int* plan, void* stream
-    "ms_deform_attn_bwd": ("ms_deform_attn_bwd",
-                           [_PTR] * 8 + _SHAPE_ARGS[:-1] + [ctypes.POINTER(_INT), _PTR]),
+    "ms_deform_attn_bwd": ("ms_deform_attn_bwd", [_PTR] * 8 + _SHAPE_ARGS),
 }
 # shared memory one block may use on the H100 (227 KB), and its SM count
 SMEM_PER_BLOCK, H100_SMS = 232_448, 132
+# an SM's shared memory (228 KB) and what the card reserves of it per block
+SMEM_PER_SM, SMEM_RESERVED = 233_472, 1_024
+# K1's blocks an SM: at most 2 (512 threads of at most 64 registers each),
+# fewer where their staged levels do not fit side by side
+FWD_MAX_BLOCKS_PER_SM = 2
+# K1 splits a (b, h) into at most ceil(Lq / FWD_SPLIT_QUERIES) blocks, so a
+# tile may hold a little under 64 queries: the decoder's 110 at bs 8 go to 2
+# blocks of 55, faster on the H100 by K1's device time than 1 block of 110
+# or 3 of 37 at every yaml's level shapes
+FWD_SPLIT_QUERIES = 64
+# least queries per block where K1 always stages the slab (on the H100, by
+# K1's device time: the encoder calls, 192 and more a block, faster staged at
+# 39 of 40 points); shorter blocks (the 110-query decoder calls) stage only
+# where the staged blocks fit the card in one wave: where staging left one
+# block an SM, 256 such blocks ran faster reading L2 at 8 of 8 points
+FWD_MIN_STAGE_QUERIES = 128
 # least queries per block where a (b, h) is split: on the H100 at bs 8 the
 # split in 2 won at 384 and more queries a block (every encoder call) and
 # lost or tied at 55 (the decoder's 110)
@@ -142,9 +158,12 @@ def _check_args(value, spatial_shapes, sampling_locations, attention_weights):
     if sum(h * w for h, w in spatial_shapes) != len_v:
         raise ValueError(f"spatial shapes {tuple(spatial_shapes)} do not sum "
                          f"to Lv = {len_v}")
+    if max(h * w for h, w in spatial_shapes) * n_heads * channels >= 2 ** 31:
+        raise ValueError(f"a level's tokens x heads x head dim must stay below 2^31 "
+                         f"(32-bit offsets), got levels {tuple(spatial_shapes)}")
     if channels % 32:
-        raise ValueError(f"head dim must be a multiple of 32 (one warp lane "
-                         f"per channel), got {channels}")
+        raise ValueError(f"head dim must be a multiple of 32 (the kernels take "
+                         f"32-channel chunks), got {channels}")
     for name, t in (("value", value), ("sampling_locations", sampling_locations),
                     ("attention_weights", attention_weights)):
         if not t.is_contiguous():
@@ -158,10 +177,10 @@ def _check_device(*tensors):
 
 
 def _launch(entry, pointers, value, spatial_shapes, sampling_locations,
-            attention_weights, extra=()):
+            attention_weights, plan_ints):
     """Call the C entry with the tensors' pointers (None for a null one), the
-    shared shape arguments, ``extra`` and PyTorch's current stream; raise if
-    it reports an error."""
+    shared shape arguments, the plan's ints and PyTorch's current stream;
+    raise if it reports an error."""
     fn = build()[entry]
     bs, len_v, n_heads, channels = value.shape
     _, len_q, _, n_levels, n_points, _ = sampling_locations.shape
@@ -171,21 +190,125 @@ def _launch(entry, pointers, value, spatial_shapes, sampling_locations,
         err = fn(*[None if t is None else t.data_ptr() for t in pointers],
                  _DTYPE_CODE[value.dtype], _DTYPE_CODE[attention_weights.dtype],
                  bs, len_q, len_v, n_heads, channels, n_levels, n_points,
-                 level_hw, *extra, torch.cuda.current_stream().cuda_stream)
+                 level_hw, (ctypes.c_int * len(plan_ints))(*plan_ints),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
+def _check_alignment(**tensors):
+    """The kernels' wide loads: 16 bytes of value (and grad_out), 8 of a
+    location."""
+    for name, t in tensors.items():
+        align = 8 if name == "sampling_locations" else 16
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must start at a multiple of {align} bytes")
+
+
+def _check_plan(plan, spatial_shapes):
+    if plan is not None and len(plan.smem_offsets) != len(spatial_shapes):
+        raise ValueError(f"the plan has {len(plan.smem_offsets)} levels, the call "
+                         f"{len(spatial_shapes)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _pack_levels(sizes):
+    """Byte offsets of the levels (sizes in bytes) placed side by side in
+    shared memory, smallest first while they fit ``SMEM_PER_BLOCK``, -1 for
+    the rest; and the bytes used."""
+    offsets, used = [-1] * len(sizes), 0
+    for lvl in sorted(range(len(sizes)), key=sizes.__getitem__):
+        if used + sizes[lvl] <= SMEM_PER_BLOCK:
+            offsets[lvl], used = used, used + sizes[lvl]
+    return offsets, used
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """How ``ms_deform_attn_fwd`` launches (``csrc/ms_deform_attn_fwd.cu``):
+    one block per (b, h) and tile of ``q_tile`` queries, ``splits`` tiles per
+    (b, h); per level, the byte offset of its [token][c] value slab in the
+    block's ``smem_bytes`` of shared memory, or -1 where its corners are read
+    from global memory; ``blocks_per_sm`` blocks fit an SM."""
+    q_tile: int
+    splits: int
+    smem_offsets: tuple
+    smem_bytes: int
+    blocks_per_sm: int
+
+    @property
+    def staged(self) -> int:
+        """How many levels are staged in shared memory."""
+        return sum(off >= 0 for off in self.smem_offsets)
+
+    def ints(self):
+        """(q_tile, smem_bytes, offset per level) for the C entry."""
+        return (self.q_tile, self.smem_bytes, *self.smem_offsets)
+
+
+@functools.lru_cache(maxsize=None)   # one plan per call shape: a lookup per launch
+def fwd_plan(spatial_shapes, channels, dtype, batch, n_heads, len_q, n_sms=H100_SMS,
+             splits=None, q_tile=None, stage=None) -> FwdPlan:
+    """K1's launch plan, from the level shapes (a tuple of (H, W) tuples),
+    the head dim and value's dtype (the slab's size), and, for the split,
+    the batch, heads, queries and SMs.
+
+    Levels go to shared memory smallest first while their slabs fit
+    ``SMEM_PER_BLOCK``; two blocks share an SM where their slabs fit side by
+    side, else one. Unless ``splits`` or ``q_tile`` is given, a (b, h) is
+    split over as many blocks as the card holds at once beside the others'
+    (the floor of its blocks over the (b, h)), and over 2 at least where a
+    level does not fit and is read from global memory; never over more than
+    ceil(Lq / ``FWD_SPLIT_QUERIES``). A split costs no atomics, only a
+    re-read of the slab from L2. Unless ``stage`` is given, the slab is
+    staged where a block takes ``FWD_MIN_STAGE_QUERIES`` queries or more,
+    and for shorter blocks only where, staged, they all fit the card at
+    once: a second wave of short blocks costs more than the copy saves.
+
+    On the H100, by K1's device time at the yamls' bs 8 and at bs 32: one
+    block more than the floor (5 in bf16, 3 in f32 at bs 8) was 15-40%
+    slower at every encoder call; at bs 32 two blocks a (b, h) against one
+    were 4-20% faster at the calls with a level in global memory (512^2,
+    and three 32^2 levels in f32) and from 3% faster to 4% slower where
+    every level is staged.
+    """
+    def per_sm(used):
+        return min(FWD_MAX_BLOCKS_PER_SM, SMEM_PER_SM // (used + SMEM_RESERVED))
+
+    sizes = [h * w * channels * dtype.itemsize for h, w in spatial_shapes]
+    offsets, used = _pack_levels(sizes)
+    if q_tile is None:
+        if splits is None:   # as many blocks as fit the card with the slab staged
+            splits = n_sms * per_sm(used) // max(1, batch * n_heads)
+            if min(offsets) < 0:   # a level in global memory
+                splits = max(splits, 2)
+            splits = max(1, min(splits, -(-len_q // FWD_SPLIT_QUERIES)))
+        q_tile = -(-len_q // splits)
+    if stage is None:
+        blocks = batch * n_heads * -(-len_q // q_tile)
+        stage = q_tile >= FWD_MIN_STAGE_QUERIES or blocks <= n_sms * per_sm(used)
+    if not stage:
+        offsets, used = [-1] * len(sizes), 0
+    return FwdPlan(q_tile, -(-len_q // q_tile), tuple(offsets), used, per_sm(used))
+
+
 def ms_deform_attn_fwd(value, spatial_shapes, sampling_locations,
-                       attention_weights):
+                       attention_weights, plan=None):
     """Kernel K1: same contract as ``ops.deformable.deformable_attention_core``.
 
     value [bs, Lv, nh, c] (f32 or bf16); sampling_locations
     [bs, Lq, nh, L, P, 2] f32; attention_weights [bs, Lq, nh, L, P] (f32 or
     value's dtype) -> [bs, Lq, nh*c] in value's dtype, f32 accumulation.
+    ``plan`` defaults to ``fwd_plan``'s for these shapes on this card.
     """
     global launches
+    _check_plan(plan, spatial_shapes)
     _check_args(value, spatial_shapes, sampling_locations, attention_weights)
+    _check_alignment(value=value, sampling_locations=sampling_locations)
     _check_device(value, sampling_locations, attention_weights)
     bs, _, n_heads, channels = value.shape
     len_q = sampling_locations.shape[1]
@@ -193,9 +316,12 @@ def ms_deform_attn_fwd(value, spatial_shapes, sampling_locations,
                       device=value.device)
     if out.numel() == 0:
         return out
+    if plan is None:
+        plan = fwd_plan(tuple(map(tuple, spatial_shapes)), channels, value.dtype, bs,
+                        n_heads, len_q, _sm_count(value.device.index))
     _launch("ms_deform_attn_fwd",
             (value, sampling_locations, attention_weights, out),
-            value, spatial_shapes, sampling_locations, attention_weights)
+            value, spatial_shapes, sampling_locations, attention_weights, plan.ints())
     launches += 1
     return out
 
@@ -215,10 +341,7 @@ def _check_bwd_args(value, spatial_shapes, sampling_locations, attention_weights
                         f"got {grad_out.dtype}")
     if not grad_out.is_contiguous():
         raise ValueError("grad_out must be contiguous")
-    for name, t, align in (("value", value, 16), ("grad_out", grad_out, 16),
-                           ("sampling_locations", sampling_locations, 8)):
-        if t.data_ptr() % align:
-            raise ValueError(f"{name} must start at a multiple of {align} bytes")
+    _check_alignment(value=value, grad_out=grad_out, sampling_locations=sampling_locations)
     _check_device(value, sampling_locations, attention_weights, grad_out)
 
 
@@ -250,11 +373,6 @@ class BwdPlan:
         return (self.q_tile, int(self.accumulate), self.smem_bytes, *self.smem_offsets)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=None)   # one plan per call shape: a lookup per launch
 def bwd_plan(spatial_shapes, channels, batch, n_heads, len_q,
              n_sms=H100_SMS, splits=None) -> BwdPlan:
@@ -270,16 +388,12 @@ def bwd_plan(spatial_shapes, channels, batch, n_heads, len_q,
     ``BWD_MIN_QUERIES`` queries a block, since each split block adds its
     whole tile to global memory.
     """
-    sizes = [h * w * channels * 4 for h, w in spatial_shapes]
-    offsets, used = [-1] * len(sizes), 0
-    for lvl in sorted(range(len(sizes)), key=sizes.__getitem__):
-        if used + sizes[lvl] <= SMEM_PER_BLOCK:
-            offsets[lvl], used = used // 4, used + sizes[lvl]
+    offsets, used = _pack_levels([h * w * channels * 4 for h, w in spatial_shapes])
     if splits is None:
         splits = max(1, min(n_sms // max(1, batch * n_heads),
                             -(-len_q // BWD_MIN_QUERIES)))
     q_tile = -(-len_q // splits)
-    return BwdPlan(q_tile, -(-len_q // q_tile), tuple(offsets), used)
+    return BwdPlan(q_tile, -(-len_q // q_tile), tuple(o // 4 for o in offsets), used)
 
 
 def ms_deform_attn_bwd(value, spatial_shapes, sampling_locations,
@@ -296,9 +410,7 @@ def ms_deform_attn_bwd(value, spatial_shapes, sampling_locations,
     defaults to ``bwd_plan``'s for these shapes on this card.
     """
     global bwd_launches
-    if plan is not None and len(plan.smem_offsets) != len(spatial_shapes):
-        raise ValueError(f"the plan has {len(plan.smem_offsets)} levels, the call "
-                         f"{len(spatial_shapes)}")
+    _check_plan(plan, spatial_shapes)
     _check_bwd_args(value, spatial_shapes, sampling_locations, attention_weights,
                     grad_out)
     if grad_out.numel() == 0:
@@ -315,12 +427,10 @@ def ms_deform_attn_bwd(value, spatial_shapes, sampling_locations,
     if plan.needs_buffer:
         make = torch.zeros if plan.accumulate else torch.empty
         acc = make(value.shape, dtype=torch.float32, device=value.device)
-    ints = plan.ints()
     _launch("ms_deform_attn_bwd",
             (value, sampling_locations, attention_weights, grad_out, grad_value, acc,
              grad_loc, grad_attn),
-            value, spatial_shapes, sampling_locations, attention_weights,
-            ((ctypes.c_int * len(ints))(*ints),))
+            value, spatial_shapes, sampling_locations, attention_weights, plan.ints())
     bwd_launches += 1
     if plan.accumulate:
         grad_value = acc.to(value.dtype)

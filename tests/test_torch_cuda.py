@@ -216,3 +216,63 @@ def test_kernel_refuses_mixed_devices(device):
     grad_out = torch.zeros((2, 110, 256), device=device)
     with pytest.raises(ValueError, match="one CUDA device"):
         deformable_cuda.ms_deform_attn_bwd(value, LEVELS, loc, attn, grad_out.cpu())
+
+
+# where K1's plan reads the corners: every level staged in shared memory
+# (the flagship), the 64^2 level from global memory beside two staged ones
+# (512^2), or none staged; each with one block per (b, h) and with a (b, h)
+# split over blocks (the plan's split of 16 (b, h) over the card)
+FWD_ROUTES = {"all staged": (LEVELS, True), "mixed": (ROUTES["mixed"], True),
+              "none staged": (LEVELS, False)}
+
+
+@pytest.mark.parametrize("loc_set", ["random", "out of bounds", "on the grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["one block", "split"])
+@pytest.mark.parametrize("route", list(FWD_ROUTES))
+def test_forward_routes(device, route, mode, dtype, loc_set):
+    levels, stage = FWD_ROUTES[route]
+    len_q = 1024
+    plan = deformable_cuda.fwd_plan(
+        levels, 32, dtype, 2, 8, len_q, torch.cuda.get_device_properties(device)
+        .multi_processor_count, splits=1 if mode == "one block" else None, stage=stage)
+    offsets = plan.smem_offsets
+    assert (plan.splits > 1) == (mode == "split")
+    assert {"all staged": min(offsets) >= 0, "mixed": min(offsets) < 0 <= max(offsets),
+            "none staged": max(offsets) < 0}[route]
+    value, loc, attn = _inputs(device, dtype, loc_set, len_q=len_q, levels=levels)
+    before = deformable_cuda.launches
+    got = deformable_cuda.ms_deform_attn_fwd(value, levels, loc, attn, plan=plan)
+    want = deformable_attention_core(value, levels, loc, attn)
+    torch.cuda.synchronize()
+    assert deformable_cuda.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if loc_set == "out of bounds":
+        assert not got.any()
+    else:
+        assert (got.float() - want.float()).abs().max().item() <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("loc_set", ["random", "on the grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [True, False], ids=["staged", "none staged"])
+def test_forward_at_head_dim_64(device, stage, dtype, loc_set):
+    """Two 32-channel chunks per row, from a 64-channel slab."""
+    plan = deformable_cuda.fwd_plan(LEVELS, 64, dtype, 2, 4, 1024, stage=stage)
+    assert (plan.staged > 0) == stage   # f32: the 32^2 level's 256 KB do not fit
+    value, loc, attn = _inputs(device, dtype, loc_set, len_q=1024, heads=4, channels=64)
+    got = deformable_cuda.ms_deform_attn_fwd(value, LEVELS, loc, attn, plan=plan)
+    want = deformable_attention_core(value, LEVELS, loc, attn)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, dtype)
+
+
+def test_forward_kernel_refuses_a_plan_that_does_not_fit(device):
+    """The C entry checks the plan: a staged level past the shared memory it
+    names is refused (a CUDA error, before any launch)."""
+    value, loc, attn = _inputs(device, torch.bfloat16, "random", len_q=110)
+    plan = deformable_cuda.fwd_plan(LEVELS, 32, torch.bfloat16, 2, 8, 110, stage=True)
+    bad = deformable_cuda.FwdPlan(plan.q_tile, plan.splits, plan.smem_offsets,
+                                  plan.smem_bytes - 16, plan.blocks_per_sm)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        deformable_cuda.ms_deform_attn_fwd(value, LEVELS, loc, attn, plan=bad)

@@ -372,3 +372,159 @@ def test_bwd_plan_splits_a_head_only_to_fill_the_sms(batch, len_q, splits):
     them, but none with fewer than 256 queries."""
     plan = deformable_cuda.bwd_plan(FLAGSHIP, 32, batch, 8, len_q)
     assert plan.splits == splits and plan.accumulate == (splits > 1)
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [32, 8, 2])
+@pytest.mark.parametrize("shape", chip_smoke.SHAPES, ids=[s[0] for s in chip_smoke.SHAPES])
+def test_fwd_plan_fits_shared_memory(shape, batch, dtype):
+    """At every call shape the smoke run drives: K1's staged value slabs sit
+    side by side within 227 KB, smallest levels first; blocks_per_sm of them
+    fit an SM's 228 KB; the query tiles cover Lq, split only while that fills
+    more of the card's blocks, or in 2 where a level is read from global
+    memory; a plan that stages nothing has tiles of under 128 queries that,
+    staged, would not fit the card in one wave."""
+    _, levels, len_q = shape
+    plan = deformable_cuda.fwd_plan(levels, 32, dtype, batch, 8, len_q)
+    staged = deformable_cuda.fwd_plan(levels, 32, dtype, batch, 8, len_q, stage=True)
+    assert staged.q_tile == plan.q_tile
+    if not plan.staged:
+        assert plan.smem_offsets == (-1,) * len(levels) and plan.smem_bytes == 0
+        assert plan.blocks_per_sm == 2 and plan.q_tile < deformable_cuda.FWD_MIN_STAGE_QUERIES
+        slots = deformable_cuda.H100_SMS * staged.blocks_per_sm
+        assert batch * 8 * plan.splits > slots
+        plan = staged
+    size = dtype.itemsize
+    assert plan.smem_bytes <= deformable_cuda.SMEM_PER_BLOCK
+    spans = sorted((off, off + h * w * 32 * size)
+                   for off, (h, w) in zip(plan.smem_offsets, levels) if off >= 0)
+    assert spans and spans[0][0] == 0 and spans[-1][1] == plan.smem_bytes
+    assert all(a[1] == b[0] and a[0] % 16 == 0 for a, b in zip(spans, spans[1:]))
+    left_out = [h * w for off, (h, w) in zip(plan.smem_offsets, levels) if off < 0]
+    kept = [h * w for off, (h, w) in zip(plan.smem_offsets, levels) if off >= 0]
+    assert not left_out or min(left_out) >= max(kept)
+    assert 1 <= plan.blocks_per_sm <= 2
+    assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= deformable_cuda.SMEM_PER_SM
+    two_fit = 2 * (plan.smem_bytes + 1024) <= deformable_cuda.SMEM_PER_SM
+    assert (plan.blocks_per_sm == 2) == two_fit
+    assert plan.splits * plan.q_tile >= len_q > (plan.splits - 1) * plan.q_tile
+    slots = deformable_cuda.H100_SMS * plan.blocks_per_sm
+    global_level = min(plan.smem_offsets) < 0
+    assert plan.splits == 1 or batch * 8 * plan.splits <= slots or (
+        global_level and plan.splits == 2)
+    assert plan.splits >= 2 or not global_level
+    assert plan.ints() == (plan.q_tile, plan.smem_bytes, *plan.smem_offsets)
+
+
+@pytest.mark.parametrize("dtype, smem, per_sm", [(torch.float32, 172_032, 1),
+                                                 (torch.bfloat16, 86_016, 2)])
+def test_fwd_plan_stages_every_flagship_level(dtype, smem, per_sm):
+    """32^2, 16^2 and 8^2: an 86 KB slab in bf16 (two blocks an SM), 172 KB
+    in f32 (one); at bs 32 one block per (b, h)."""
+    plan = deformable_cuda.fwd_plan(FLAGSHIP, 32, dtype, 32, 8, 1344)
+    assert plan.staged == 3 and plan.smem_bytes == smem and plan.blocks_per_sm == per_sm
+    assert plan.smem_offsets == tuple(o * dtype.itemsize // 2 for o in (20480, 4096, 0))
+    assert (plan.splits, plan.q_tile) == (1, 1344)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_fwd_plan_sends_the_64x64_level_to_global_memory(dtype):
+    """At 512^2 the 64^2 level's slab (256 KB in bf16) does not fit; 32^2 and
+    16^2 do."""
+    plan = deformable_cuda.fwd_plan(((64, 64), (32, 32), (16, 16)), 32, dtype, 32, 8, 5376)
+    assert plan.smem_offsets[0] == -1 and min(plan.smem_offsets[1:]) >= 0
+    assert plan.smem_bytes == (32 * 32 + 16 * 16) * 32 * dtype.itemsize
+
+
+@pytest.mark.parametrize("dtype, batch, len_q, splits", [
+    (torch.bfloat16, 32, 1344, 1), (torch.bfloat16, 16, 1344, 2),
+    (torch.bfloat16, 8, 1344, 4), (torch.float32, 8, 1344, 2),
+    (torch.bfloat16, 8, 110, 2), (torch.bfloat16, 2, 1344, 16),
+    (torch.float32, 2, 110, 2), (torch.bfloat16, 1, 5376, 33)])
+def test_fwd_plan_splits_a_head_to_fill_the_card(dtype, batch, len_q, splits):
+    """As many blocks per (b, h) as the card's blocks (132 SMs x blocks_per_sm)
+    hold beside the other (b, h), and at most ceil(Lq / 64): the decoder's
+    110 queries at bs 8 go to 2 blocks of 55."""
+    plan = deformable_cuda.fwd_plan(FLAGSHIP, 32, dtype, batch, 8, len_q)
+    assert plan.splits == splits
+
+
+@pytest.mark.parametrize("levels, dtype, batch, global_level, splits", [
+    (((64, 64), (32, 32), (16, 16)), torch.bfloat16, 32, True, 2),
+    (((64, 64), (32, 32), (16, 16)), torch.float32, 32, True, 2),
+    (((32, 32),) * 3, torch.float32, 32, True, 2),
+    (((32, 32),) * 3, torch.bfloat16, 32, False, 1),
+    (((64, 64), (32, 32), (16, 16)), torch.bfloat16, 8, True, 4)])
+def test_fwd_plan_splits_a_head_with_a_level_in_global_memory(levels, dtype, batch,
+                                                              global_level, splits):
+    """Where a level does not fit shared memory (64^2; three 32^2 levels in
+    f32) a (b, h) takes 2 blocks at least, even where its one block would
+    fill the card; three 32^2 levels in bf16 all fit and keep one block."""
+    plan = deformable_cuda.fwd_plan(levels, 32, dtype, batch, 8, 3072)
+    assert (min(plan.smem_offsets) < 0) == global_level
+    assert plan.splits == splits
+
+
+def test_fwd_plan_takes_a_given_split_tile_or_staging():
+    plan = deformable_cuda.fwd_plan(FLAGSHIP, 32, torch.bfloat16, 8, 8, 1344, splits=1)
+    assert (plan.splits, plan.q_tile, plan.staged) == (1, 1344, 3)
+    plan = deformable_cuda.fwd_plan(FLAGSHIP, 32, torch.bfloat16, 32, 8, 110, q_tile=32)
+    assert (plan.splits, plan.q_tile) == (4, 32)
+    plan = deformable_cuda.fwd_plan(FLAGSHIP, 32, torch.float32, 32, 8, 1344, stage=False)
+    assert (plan.staged, plan.smem_bytes, plan.smem_offsets) == (0, 0, (-1, -1, -1))
+    assert plan.blocks_per_sm == 2
+    plan = deformable_cuda.fwd_plan(FLAGSHIP, 32, torch.bfloat16, 32, 8, 110, stage=True)
+    assert (plan.staged, plan.smem_bytes, plan.blocks_per_sm) == (3, 86_016, 2)
+
+
+@pytest.mark.parametrize("levels, dtype, batch, len_q, staged", [
+    (FLAGSHIP, torch.bfloat16, 32, 1344, 3), (FLAGSHIP, torch.float32, 32, 1344, 3),
+    (FLAGSHIP, torch.bfloat16, 8, 1344, 3), (FLAGSHIP, torch.bfloat16, 2, 1344, 3),
+    (FLAGSHIP, torch.bfloat16, 32, 110, 3), (FLAGSHIP, torch.float32, 32, 110, 0),
+    (FLAGSHIP, torch.float32, 8, 110, 3), (((32, 32),) * 3, torch.bfloat16, 32, 110, 0),
+    (((32, 32),) * 3, torch.bfloat16, 8, 110, 3)])
+def test_fwd_plan_stages_long_blocks_and_short_ones_in_one_wave(levels, dtype, batch, len_q,
+                                                                staged):
+    """Blocks of 128 queries or more stage the slab; shorter ones (the
+    decoder's 110, 55 a block at bs 8) only where, staged, all 256 or 128 of
+    them fit the card at once: not where the slab leaves one block an SM
+    (f32, or bf16 at three 32^2 levels) and the (b, h) are 256."""
+    plan = deformable_cuda.fwd_plan(levels, 32, dtype, batch, 8, len_q)
+    assert plan.staged == staged
+
+
+@pytest.mark.parametrize("name", ["value", "sampling_locations"])
+def test_kernel_wrapper_refuses_misaligned_tensors(name):
+    """K1 reads value 16 bytes and a location 8 bytes at a time: a contiguous
+    view that starts 4 bytes off is refused before launch."""
+    args = _kernel_args()
+    t = args[name]
+    args[name] = torch.zeros(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    assert args[name].is_contiguous()
+    before = deformable_cuda.launches
+    with pytest.raises(ValueError, match=f"{name} must start at a multiple"):
+        deformable_cuda.ms_deform_attn_fwd(**args)
+    assert deformable_cuda.launches == before
+
+
+def test_kernel_wrapper_refuses_a_plan_of_other_levels():
+    plan = deformable_cuda.fwd_plan(((8, 8),), 32, torch.float32, 2, 4, 80)
+    before = deformable_cuda.launches
+    with pytest.raises(ValueError, match="the plan has 1 levels"):
+        deformable_cuda.ms_deform_attn_fwd(**_kernel_args(), plan=plan)
+    assert deformable_cuda.launches == before
+
+
+def test_kernel_wrapper_refuses_a_level_past_32_bit_offsets():
+    """K1 offsets a token within a level in 32 bits: a 4096^2 level of 8
+    heads x 32 channels (2^32 elements) is refused before launch (meta
+    tensors: no memory)."""
+    shapes = ((4096, 4096),)
+    value = torch.empty((1, 4096 * 4096, 8, 32), device="meta")
+    loc = torch.empty((1, 3, 8, 1, 2, 2), device="meta")
+    attn = torch.empty((1, 3, 8, 1, 2), device="meta")
+    with pytest.raises(ValueError, match="below 2\\^31"):
+        deformable_cuda.ms_deform_attn_fwd(value, shapes, loc, attn)
