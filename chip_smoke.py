@@ -62,6 +62,19 @@ forward included). Phases 1 and 3a also hold the kernels at the variants'
 level shapes: three 16^2 levels (ViT), three 32^2 (HRNet, ResNet OS8) and
 32^2/16^2/16^2 (ResNet OS16), and at the 224^2, 384^2 and 448^2 yamls'
 levels (28/14/7, 48/24/12, 56/28/14).
+Phase 6 drives the model zoo, which runs no deformable attention (none of
+its paths may launch K1-K3): for the SETR-PUP, SETR-Naive, UperNet-Swin-T,
+UperNet-CSwin-T, UperNet-Focal-B, DPT-Large and Trans2Seg Potsdam yamls and
+the SETR-MLA ADE20K one, at full width and depth with seeded random
+weights, one float32 window at the yaml's crop on the card against the same
+model on the CPU (TF32 off; within 1e-3 x max|logit|), a bf16 ``evaluate``
+of one 1024^2 image at stride 171 (windows/s, peak memory), six bf16
+train steps at the yaml's batch with its optimizer (finite losses, ms per
+step, peak memory) and one profiled step (the device's busy share); two
+AdamW steps of the UperNet-Swin ADE20K yaml that trains with AdamW and two
+Adam steps of the Trans10k Trans2Seg yaml; then ``train.main`` for a few
+iterations on the SETR-PUP yaml with one save, and ``val.main`` on its
+best_model.pt (the training run's mIoU within 1e-3).
 
 Any failed check raises, and the script then exits non-zero without the
 final line. It prints its own time, then a JSON object describing each
@@ -1194,6 +1207,237 @@ def phase5(card, save_dir):
     return rows, launches
 
 
+# phase 6: the model zoo on the card. Each yaml's model at full width and
+# depth with seeded random weights, in the order of ``ZOO_YAMLS``; the
+# crop-size window batch of its evaluate; the f32 card-vs-CPU bound
+ZOO_YAMLS = ("setr/SETR_PUP_Large_256x256_160k_potsdam_bs_8.yaml",
+             "setr/SETR_Naive_Large_256x256_160k_potsdam_bs_8.yaml",
+             "setr/SETR_MLA_Large_512x512_160k_ade20k_bs_8.yaml",
+             "upernet_swin/upernet_swin_tiny_patch4_windown7_512x512_160k_potsdam.yaml",
+             "upernet_cswin/upernet_cswin_tiny_patch4_512x512_160k_potsdam.yaml",
+             "upernet_focal/upernet_focal_base_patch4_windown7_512x512_160k_potsdam.yaml",
+             "dpt/DPT_Large_512x512_160k_potsdam_bs_8.yaml",
+             "trans2seg/Trans2Seg_medium_256x256_160k_potsdam.yaml")
+# (yaml, optimizer class it must build): the AdamW and Adam yamls, 2 steps each
+ZOO_OPTIMIZER_YAMLS = (("upernet_swin/upernet_swin_tiny_512x512_160k_ade20k.yaml", "AdamW"),
+                       ("trans2seg/Trans2Seg_medium_512x512_80k_trans10kv2.yaml", "Adam"))
+ZOO_WINDOWS = {256: 36, 512: 16}         # one 1024^2 image at stride 171, one chunk or two
+# one float32 window on the card (TF32 off) against the same model on the CPU:
+# both sum in float32 in another order, through up to 24 transformer layers
+ZOO_F32_RTOL = 1e-3
+# train steps a model: the first ZOO_WARMUP (cuDNN's and the allocator's first
+# shapes) are left out of the median
+ZOO_STEPS, ZOO_WARMUP, ZOO_TRAINER_ITERS = 6, 2, 4
+
+
+def _zoo_config(yaml, overrides=()):
+    return _variant_config(ROOT / "configs" / yaml, overrides)
+
+
+def phase6_model(yaml, card):
+    """One zoo yaml at full width: f32 card vs CPU, a bf16 evaluate of one
+    1024^2 image at stride 171, six bf16 train steps at the yaml's batch
+    with its optimizer (timed), and one profiled step."""
+    import copy
+
+    import numpy as np
+    import torch
+    from emrt_tpu_torch.data.datasets import SyntheticDataset
+    from emrt_tpu_torch.inference import build_val_transforms, evaluate
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
+    cfg = _zoo_config(yaml)
+    crop = tuple(cfg.DATA.CROP_SIZE)
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = get_model(cfg).eval()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tag = f"phase 6: {Path(yaml).stem} ({type(model).__name__}, {n_params / 1e6:.1f}M params)"
+
+    # float32, one window at the yaml's crop: the card against the CPU
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    window = torch.randn((1, 3, crop[1], crop[0]), generator=gen, device="cuda")
+    model.dtype = torch.float32
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        card_out = [o.cpu() for o in model(window)]
+        cpu_model = copy.deepcopy(model).cpu()
+        cpu_out = cpu_model(window.cpu())
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(card_out, cpu_out)]
+    print(f"{tag}: built in {build_s:.1f} s; f32 {crop[0]}^2 window, card vs CPU, "
+          f"{len(errs)} outputs: max abs diff / max|logit| "
+          f"{[f'{e:.3e}/{m:.3e}' for e, m in errs]} (tol {ZOO_F32_RTOL} x max; "
+          f"{cpu_s:.1f} s with the CPU copy)")
+    check(all(torch.isfinite(o).all() for o in card_out), f"{yaml}: non-finite f32 logits")
+    check(all(e <= ZOO_F32_RTOL * m for e, m in errs), f"{yaml}: card vs CPU {errs}")
+    model.dtype = torch.bfloat16
+
+    # bf16 evaluate: one 1024^2 image at stride 171
+    eval_cfg = cfg.clone()
+    eval_cfg.VAL.IMAGE_BASE_SIZE = IMAGE_SIZE
+    eval_cfg.VAL.CROP_SIZE = list(crop)
+    eval_cfg.VAL.STRIDE_SIZE = [171, 171]
+    eval_cfg.DATA.BATCH_SIZE_VAL = 1
+    dataset = SyntheticDataset(build_val_transforms(eval_cfg), num_samples=1,
+                               crop_size=(IMAGE_SIZE, IMAGE_SIZE),
+                               num_classes=cfg.DATA.NUM_CLASSES, mode="val", seed=0)
+    n_windows, finite = [], []
+
+    def forward(images):
+        logits = model(images)[0]
+        finite.append(torch.isfinite(logits).all())
+        n_windows.append(images.shape[0])
+        return logits
+
+    window_batch = 32 if crop[0] <= 256 else 16
+    with torch.inference_mode():
+        model(torch.randn((window_batch, 3, crop[1], crop[0]), device="cuda"))   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = evaluate(forward, dataset, eval_cfg, "cuda", window_batch=window_batch,
+                          progbar=False)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    windows_s = sum(n_windows) / eval_s
+    print(f"{tag}: bf16 evaluate of one {IMAGE_SIZE}^2 image at stride 171: "
+          f"{sum(n_windows)} windows of {crop[0]}^2 in {len(n_windows)} forwards, "
+          f"{windows_s:.1f} windows/s end to end incl. host data, mIoU {result['miou']:.4f}, "
+          f"peak memory {eval_gib:.2f} GiB ({card})")
+    check(sum(n_windows) == ZOO_WINDOWS[crop[0]] and all(bool(f) for f in finite),
+          f"{yaml}: {sum(n_windows)} windows, finite {[bool(f) for f in finite]}")
+    check(0.0 <= result["miou"] <= 1.0, f"{yaml}: mIoU {result['miou']}")
+
+    # bf16 train steps at the yaml's batch with its optimizer
+    bs = cfg.DATA.BATCH_SIZE
+    optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
+    step = make_train_step(model, get_loss_function(cfg), optimizer)
+    batch = {"image": torch.randn((bs, 3, crop[1], crop[0]), generator=gen, device="cuda"),
+             "label": torch.randint(0, cfg.DATA.NUM_CLASSES, (bs, crop[1], crop[0]),
+                                    generator=gen, device="cuda")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(ZOO_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(batch))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    losses = torch.stack(losses).tolist()
+    train_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(times[ZOO_WARMUP:])
+    groups = [(len(g["params"]), g["lr_mult"]) for g in optimizer.optimizer.param_groups]
+    print(f"{tag}: {ZOO_STEPS} bf16 train steps at bs {bs} {crop[0]}^2 with "
+          f"{type(optimizer).__name__} (groups (params, lr x) {groups}): losses "
+          f"{[round(x, 4) for x in losses]}, step times {[round(t, 2) for t in times]} ms, "
+          f"{step_ms:.2f} ms per step (median of the last {ZOO_STEPS - ZOO_WARMUP}, CUDA "
+          f"events), "
+          f"peak memory {train_gib:.2f} GiB ({card})")
+    check(all(np.isfinite(losses)), f"{yaml}: train losses {losses}")
+    check(type(optimizer).__name__ == cfg.TRAIN.OPTIMIZER.NAME,
+          f"{yaml}: {type(optimizer).__name__} for {cfg.TRAIN.OPTIMIZER.NAME}")
+    busy = profile_step(lambda: step(batch), f"{tag}: profile of one bs-{bs} train step",
+                        top=5)
+    del model, step, optimizer, batch
+    torch.cuda.empty_cache()
+    return {"windows_s": windows_s, "step_ms": step_ms, "bs": bs, "crop": crop[0],
+            "eval_gib": eval_gib, "train_gib": train_gib, "busy": busy,
+            "f32_err": max(e / m for e, m in errs), "params_m": n_params / 1e6}
+
+
+def phase6_optimizer(yaml, name):
+    """Two steps of a yaml that trains with AdamW or Adam."""
+    import numpy as np
+    import torch
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
+    cfg = _zoo_config(yaml)
+    crop, bs = tuple(cfg.DATA.CROP_SIZE), cfg.DATA.BATCH_SIZE
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        model = get_model(cfg)
+    optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
+    check(type(optimizer).__name__ == name, f"{yaml}: {type(optimizer).__name__}")
+    step = make_train_step(model, get_loss_function(cfg), optimizer)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"image": torch.randn((bs, 3, crop[1], crop[0]), generator=gen, device="cuda"),
+             "label": torch.randint(0, cfg.DATA.NUM_CLASSES, (bs, crop[1], crop[0]),
+                                    generator=gen, device="cuda")}
+    losses = torch.stack([step(batch) for _ in range(2)]).tolist()
+    moments = sum(len(s) for s in optimizer.optimizer.state.values())
+    print(f"phase 6: {Path(yaml).stem}: 2 bf16 {name} steps at bs {bs} {crop[0]}^2 "
+          f"(betas {cfg.TRAIN.OPTIMIZER.BETAS}, weight decay "
+          f"{cfg.TRAIN.OPTIMIZER.WEIGHT_DECAY}): losses {[round(x, 4) for x in losses]}, "
+          f"{moments} state tensors")
+    check(all(np.isfinite(losses)) and optimizer.step_count == 2, f"{yaml}: {losses}")
+    del model, step, optimizer
+    torch.cuda.empty_cache()
+
+
+def phase6_trainer(save_dir):
+    """``train.main`` on the SETR-PUP Potsdam yaml for a few iterations with
+    one save and one evaluation, then ``val.main`` on its best_model.pt:
+    the training run's mIoU within F6_MIOU_TOL."""
+    import json
+
+    import numpy as np
+    from emrt_tpu_torch.train import main as train_main
+    from emrt_tpu_torch.val import main as val_main
+    path = str(ROOT / "configs" / ZOO_YAMLS[0])
+    # the flags first: the KEY VALUE overrides are one trailing positional
+    flags = ["--config", path, "--device", "cuda"]
+    opts = ["DATA.DATASET", "Synthetic", "TRAIN.DTYPE", "bfloat16"]
+    t0 = time.perf_counter()
+    run = train_main([*flags, "--seed", "0", "--iters", str(ZOO_TRAINER_ITERS), *opts,
+                      "SAVE_DIR", save_dir, "LOGGING_INFO_FREQ", "2",
+                      "SAVE_FREQ_CHECKPOINT", str(ZOO_TRAINER_ITERS),
+                      "VALIDATE_FREQ", str(ZOO_TRAINER_ITERS)])
+    train_s = time.perf_counter() - t0
+    best = json.loads((Path(save_dir) / "best_model.json").read_text())["best_miou"]
+    result = val_main([*flags, "--model_path", str(Path(save_dir) / "best_model.pt"), *opts])
+    print(f"phase 6: train.main {ZOO_TRAINER_ITERS} iters on {Path(path).name} at bs "
+          f"{_zoo_config(ZOO_YAMLS[0]).DATA.BATCH_SIZE} in {train_s:.1f} s: window losses {[round(x, 4) for x in run['losses']]}, "
+          f"mIoU {run['mious']}; val.main on best_model.pt: mIoU {result['miou']:.6f} "
+          f"against {best:.6f}, {result['forwards']} forwards")
+    check(run["steps"] == ZOO_TRAINER_ITERS and all(np.isfinite(run["losses"])),
+          f"train.main: {run['steps']} steps, losses {run['losses']}")
+    check(abs(result["miou"] - best) <= F6_MIOU_TOL,
+          f"best_model.pt evaluates to mIoU {result['miou']}, the training run's {best}")
+
+
+def phase6(card):
+    """The zoo at full width on the card; none of its paths runs K1-K3."""
+    import tempfile
+    _reset_counts()
+    rows = {Path(y).stem: phase6_model(y, card) for y in ZOO_YAMLS}
+    for yaml, name in ZOO_OPTIMIZER_YAMLS:
+        phase6_optimizer(yaml, name)
+    with tempfile.TemporaryDirectory() as save_dir:
+        phase6_trainer(save_dir)
+    launches = _counts()
+    check(launches == (0, 0), f"the zoo launched the deformable kernels {launches}")
+    print(f"phase 6: per zoo yaml (full width, seeded random weights, bf16; {card}):")
+    for name, r in rows.items():
+        busy = "n/a" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
+        print(f"  {name[:48]:48s} {r['params_m']:6.1f}M evaluate {r['windows_s']:7.1f} "
+              f"windows/s of {r['crop']}^2 (peak {r['eval_gib']:.2f} GiB), train step bs "
+              f"{r['bs']} {r['step_ms']:8.2f} ms (peak {r['train_gib']:.2f} GiB, device busy "
+              f"{busy}), f32 card vs CPU {r['f32_err']:.2e} x max")
+    print(f"phase 6: K1 / K2-K3 launches across phase 6: {launches}")
+    return rows
+
+
 _CATEGORIES = (   # (category, substrings of a kernel's name), first match wins
     ("K1 deformable fwd", ("ms_deform_attn_fwd",)),
     ("K2+K3 deformable bwd (fused)", ("ms_deform_attn_bwd",)),
@@ -1222,10 +1466,10 @@ def kernel_category(key: str) -> str:
                 "other")
 
 
-def profile_step(fn, what=f"phase 3c: profile of one bs-{BS} step"):
+def profile_step(fn, what=f"phase 3c: profile of one bs-{BS} step", top: int = 12):
     """Device time of one call of ``fn`` (a step, a forward) by kernel
     category (torch.profiler), and the device's busy share of its wall
-    time."""
+    time, which it returns (None where the profiler saw no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1248,14 +1492,15 @@ def profile_step(fn, what=f"phase 3c: profile of one bs-{BS} step"):
     busy = sum(totals.values())
     if busy == 0:
         print(f"{what}: torch.profiler recorded no device time")
-        return
+        return None
     print(f"{what}: wall {wall_ms:.2f} ms, {n_kernels} kernels, device busy {busy:.2f} ms "
           f"({100 * busy / wall_ms:.1f}% of wall), by category:")
     for cat, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:44s} {ms:9.3f} ms {100 * ms / busy:5.1f}%")
     print(f"{what}: top kernels:")
-    for key, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
+    for key, ms in sorted(names.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:9.3f} ms  {key[:110]}")
+    return busy / wall_ms
 
 
 def main():
@@ -1274,6 +1519,7 @@ def main():
         train_launches, _ = phase3c(card, save_dir)
         _, variant_launches = phase4(card)
         _, inference_launches = phase5(card, save_dir)
+    phase6(card)
     from emrt_tpu_torch.ops import deformable_cuda
     name, levels, len_q = SHAPES[0]
     fwd = fwd_times[name, BS, torch.bfloat16]

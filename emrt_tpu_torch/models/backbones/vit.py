@@ -1,16 +1,20 @@
-"""Vision Transformer backbone as EMRT-ViT uses it (counterpart of
+"""Vision Transformer backbone of EMRT-ViT, SETR and DPT (counterpart of
 ``emrt_tpu/models/backbones/vit.py``; reference src/models/backbones/vit.py).
 
 Conv patch embed (VALID), the cls token, then the learned position table
 of 1 + (H/p)(W/p) rows, pre-norm blocks with fused-qkv attention, and the
-token maps at ``out_indices`` with the cls token dropped (NCHW). The table
-is made for one input size (``img_size``); interpolating it to another on
-load waits (ROADMAP.md queue 1, M6).
+token maps at ``out_indices`` with the cls token dropped (NCHW). Two modes
+of the JAX ViT: ``drop_prefix_after_pos`` (ViT_MLA: the cls token joins
+only the position add and is sliced off before the blocks) and
+``return_cls`` (DPT's readout: also each tap's cls token). The table is
+made for one input size (``img_size``) and the forward refuses another;
+a table of another size is re-interpolated on load
+(``utils/checkpoint.py::interp_pos_embed``), as the JAX loader does.
 
-Parameter names are the reference's (``vit_backbone_map``): EMRT holds
-``encoder.transformer``, with ``embeddings.{patch_embeddings,
-position_embeddings, cls_token}`` and ``encoder.layers.{i}.{attn_norm,
-attn.{qkv,out}, mlp_norm, mlp.{fc1,fc2}}``.
+Parameter names are the reference's (``vit_backbone_map``): EMRT and SETR
+hold ``encoder.transformer``, DPT ``backbone.transformer``, with
+``embeddings.{patch_embeddings, position_embeddings, cls_token}`` and
+``encoder.layers.{i}.{attn_norm, attn.{qkv,out}, mlp_norm, mlp.{fc1,fc2}}``.
 """
 from __future__ import annotations
 
@@ -24,9 +28,10 @@ class Attention(nn.Module):
     """Multi-head self-attention, fused ``qkv`` (q, k, v column blocks) and
     ``out``; the softmax in float32."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, attn_dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop = nn.Dropout(attn_dropout)
         self.qkv = nn.Linear(dim, 3 * dim)
         for w in self.qkv.weight.data.chunk(3):
             nn.init.xavier_uniform_(w)
@@ -38,20 +43,22 @@ class Attention(nn.Module):
         hd = c // self.num_heads
         q, k, v = self.qkv(x).view(b, n, 3, self.num_heads, hd).unbind(2)
         attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
-        attn = attn.float().softmax(-1).to(v.dtype)
+        attn = self.attn_drop(attn.float().softmax(-1).to(v.dtype))
         return self.out(torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, c))
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dropout: float = 0.0, attn_dropout: float = 0.0):
         super().__init__()
         self.attn_norm = layer_norm(dim)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, attn_dropout)
+        self.dropout = nn.Dropout(dropout)
         self.mlp_norm = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout)
 
     def forward(self, x):
-        x = x + self.attn(self.attn_norm(x))
+        x = x + self.dropout(self.attn(self.attn_norm(x)))
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -82,26 +89,36 @@ class _Layers(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """forward(images) -> the token maps [b, D, H/p, W/p] at out_indices."""
+    """forward(images) -> the token maps [b, D, H/p, W/p] at out_indices, and
+    with ``return_cls`` also the taps' cls tokens [b, D]."""
 
     def __init__(self, img_size=(256, 256), patch_size: int = 16, hidden_size: int = 1024,
                  num_layers: int = 24, num_heads: int = 16, mlp_ratio: float = 4.0,
-                 out_indices=(9, 14, 19, 23)):
+                 out_indices=(9, 14, 19, 23), drop_prefix_after_pos: bool = False,
+                 return_cls: bool = False, dropout: float = 0.0, attn_dropout: float = 0.0):
         super().__init__()
         self.out_indices = tuple(out_indices)
+        self.drop_prefix_after_pos = drop_prefix_after_pos
+        self.return_cls = return_cls
         self.embeddings = Embeddings(img_size, patch_size, hidden_size)
-        self.encoder = _Layers(EncoderLayer(hidden_size, num_heads, mlp_ratio)
-                               for _ in range(num_layers))
+        self.dropout = nn.Dropout(dropout)
+        self.encoder = _Layers(EncoderLayer(hidden_size, num_heads, mlp_ratio, dropout,
+                                            attn_dropout) for _ in range(num_layers))
 
     def forward(self, x):
         x = self.embeddings(x)
+        if self.drop_prefix_after_pos:
+            x = x[:, 1:]
+        x = self.dropout(x)
         gh, gw = self.embeddings.grid
-        feats = []
+        feats, cls_taps = [], []
         for i, layer in enumerate(self.encoder.layers):
             x = layer(x)
             if i in self.out_indices:
-                feats.append(x[:, 1:].transpose(1, 2).reshape(x.shape[0], -1, gh, gw))
-        return feats
+                grid = x[:, -gh * gw:]
+                feats.append(grid.transpose(1, 2).reshape(x.shape[0], -1, gh, gw))
+                cls_taps.append(x[:, 0])
+        return (feats, cls_taps) if self.return_cls else feats
 
 
 class ViTEncoder(nn.Module):

@@ -1,9 +1,9 @@
 """FCN head, the aux segmentation head (counterpart of
 ``emrt_tpu/models/decoders/fcn_head.py``; reference
-src/models/decoders/fcn_head.py:19-81), in the form EMRT uses it: one
-conv-BN-ReLU, dropout, a 1x1 classifier, at the input's resolution
+src/models/decoders/fcn_head.py:19-81), in the form EMRT and UperNet use
+it: one conv-BN-ReLU, dropout, a 1x1 classifier, at the input's resolution
 (``up_ratio=1``). Parameter names are the reference's: ``convs.0.{0,1}`` and
-``conv_seg``. The zoo's other forms wait (ROADMAP.md queue 1, M11)."""
+``conv_seg``."""
 from __future__ import annotations
 
 import torch.nn as nn

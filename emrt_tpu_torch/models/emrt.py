@@ -29,7 +29,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.pooling import adaptive_avg_pool
 from ..ops.resize import resize_bilinear
 from .backbones.cswin import CSwinTransformer
 from .backbones.hrnet import hrnet_w48
@@ -39,7 +38,7 @@ from .backbones.resnext import resnest50, resnext50_64x4d
 from .backbones.vit import ViTEncoder
 from .decoders.fcn_head import FCNHead
 from .deformable_transformer import EncoderDecoder, tokens_to_levels
-from .layers import BatchNorm2d, ConvBNReLU, kaiming_normal_, layer_norm
+from .layers import AdaptiveAvgPool, BatchNorm2d, ConvBNReLU, kaiming_normal_, layer_norm
 
 
 class Conv2dBlock(nn.Module):
@@ -70,15 +69,6 @@ class EFP(nn.Module):
         return self.conv0(x0) + out21
 
 
-class _AdaptiveAvgPool(nn.Module):
-    def __init__(self, output_size: int):
-        super().__init__()
-        self.output_size = output_size
-
-    def forward(self, x):
-        return adaptive_avg_pool(x, self.output_size)
-
-
 class PyramidPoolingModule(nn.Module):
     """Adaptive-pool pyramid -> 1x1 conv-BN-ReLU -> flattened tokens
     (reference :50-78). Returns [bs, sum(s^2), C] token-major."""
@@ -86,7 +76,7 @@ class PyramidPoolingModule(nn.Module):
     def __init__(self, pool_scales: Sequence[int] = (1, 3, 6, 8), channels: int = 256):
         super().__init__()
         self.pool_branches = nn.ModuleList(
-            nn.Sequential(_AdaptiveAvgPool(s), *ConvBNReLU(channels, channels, 1))
+            nn.Sequential(AdaptiveAvgPool(s), *ConvBNReLU(channels, channels, 1))
             for s in pool_scales)
 
     def forward(self, x):

@@ -11,6 +11,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.pooling import adaptive_avg_pool
+
 
 def kaiming_normal_(conv: nn.Conv2d) -> nn.Conv2d:
     nn.init.kaiming_normal_(conv.weight, mode="fan_in", nonlinearity="relu")
@@ -98,6 +100,18 @@ class ConvBNReLU(nn.Sequential):
             conv2d(in_channels, out_channels, kernel_size, stride, dilation, padding),
             BatchNorm2d(out_channels, eps=1e-5),
             nn.ReLU(inplace=True))
+
+
+class AdaptiveAvgPool(nn.Module):
+    """``ops/pooling.py::adaptive_avg_pool`` as a module (the pyramid-pooling
+    branches' first entry)."""
+
+    def __init__(self, output_size: int):
+        super().__init__()
+        self.output_size = output_size
+
+    def forward(self, x):
+        return adaptive_avg_pool(x, self.output_size)
 
 
 class Mlp(nn.Module):

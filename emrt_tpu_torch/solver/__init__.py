@@ -1,2 +1,2 @@
 from .lr_scheduler import get_scheduler, polynomial_decay
-from .optimizer import SGD, get_optimizer
+from .optimizer import SGD, Adam, AdamW, get_optimizer

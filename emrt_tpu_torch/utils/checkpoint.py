@@ -11,15 +11,20 @@ step count) and the step, and only the newest ``max_to_keep`` stay.
 evaluation overwrite a better one from before the restart. Every file is
 written to a temporary name first and then renamed into place.
 ``load_weights_auto`` reads either file, or a reference ``.pdparams``, into
-a model: ``val``, ``predict`` and MODEL.PRETRAINED load through it.
+a model: ``val``, ``predict`` and MODEL.PRETRAINED load through it. A ViT
+position table of another token count (weights trained at another crop) is
+bilinearly re-interpolated on load (``interp_pos_embed``).
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .logger import logger
 
@@ -86,6 +91,44 @@ class CheckpointManager:
         return int(state["step"])
 
 
+def interp_pos_embed(value: np.ndarray, target_shape, n_prefix: int = 1) -> np.ndarray:
+    """Bilinearly re-interpolate a [1, prefix + N, D] ViT position table to
+    ``target_shape``'s token count (``emrt_tpu/utils/checkpoint.py::
+    _interp_pos_embed``; reference checkpoint.py:55-71). The grid is square;
+    the first ``n_prefix`` rows (the cls token's) are kept as they are when
+    both grids are squares without them or the source is no square with
+    them."""
+    src_tokens, dst_tokens = value.shape[1], target_shape[1]
+
+    def square(n):
+        return math.isqrt(n) ** 2 == n
+
+    prefix = n_prefix if src_tokens != dst_tokens and not square(src_tokens) else 0
+    if square(src_tokens - n_prefix) and square(dst_tokens - n_prefix):
+        prefix = n_prefix
+    head, grid = value[:, :prefix], value[:, prefix:]
+    gs, ts = math.isqrt(grid.shape[1]), math.isqrt(dst_tokens - prefix)
+    if gs * gs != grid.shape[1] or ts * ts != dst_tokens - prefix:
+        raise ValueError(f"cannot interpolate pos_embed {value.shape} -> {tuple(target_shape)}")
+    g = torch.from_numpy(np.ascontiguousarray(grid, np.float32)).reshape(1, gs, gs, -1)
+    resized = F.interpolate(g.permute(0, 3, 1, 2), size=(ts, ts), mode="bilinear",
+                            align_corners=False).permute(0, 2, 3, 1)
+    return np.concatenate([head, resized.reshape(1, ts * ts, -1).numpy()], axis=1)
+
+
+def _fit_pos_tables(model, state: dict) -> dict:
+    """``state`` with its position tables of another token count
+    re-interpolated to the model's."""
+    target = model.state_dict()
+    out = dict(state)
+    for key, v in state.items():
+        t = target.get(key)
+        if (t is not None and key.endswith(("position_embeddings", "pos_embed"))
+                and v.dim() == 3 and tuple(v.shape) != tuple(t.shape)):
+            out[key] = torch.from_numpy(interp_pos_embed(v.float().numpy(), tuple(t.shape)))
+    return out
+
+
 def load_weights_auto(model, path: str) -> dict:
     """Load weights into ``model`` from a ``.pt`` file of this package (a
     model state dict, ``best_model.pt``, or the ``model`` entry of an
@@ -93,7 +136,8 @@ def load_weights_auto(model, path: str) -> dict:
     or a prefix-less ImageNet ResNet (``utils/pdparams.py::load_pdparams``);
     the counterpart of ``emrt_tpu/utils/checkpoint.py::load_weights_auto``.
     Tensors the file lacks keep their values. Returns {matched, missing,
-    unused}; raises on a tensor of another shape."""
+    unused}; raises on a tensor of another shape, but a position table,
+    which is re-interpolated."""
     if path.endswith(".pdparams"):
         from .pdparams import load_pdparams, read_pdparams
         return load_pdparams(model, read_pdparams(path))
@@ -103,6 +147,7 @@ def load_weights_auto(model, path: str) -> dict:
     state = torch.load(path, map_location="cpu", weights_only=True)
     if {"model", "optimizer", "step"} <= state.keys():     # iter_<n>.pt
         state = state["model"]
+    state = _fit_pos_tables(model, state)
     missing, unused = model.load_state_dict(state, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     return {"matched": len(state) - len(unused), "missing": missing, "unused": unused}

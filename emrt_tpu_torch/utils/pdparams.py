@@ -11,6 +11,10 @@ The port's state-dict keys are the reference's Paddle module paths
 * Paddle BatchNorm statistics are ``_mean`` / ``_variance``; torch's are
   ``running_mean`` / ``running_var``.
 
+(A Paddle ``Conv2DTranspose`` weight is torch's [in, out, kh, kw] as it is.)
+A ViT position table of another token count is re-interpolated to the
+model's (``checkpoint.py::interp_pos_embed``).
+
 A prefix-less ImageNet ResNet file (``conv1``, ``bn1``, ``layer{s}.{b}...``,
 ``fc``), which the reference loads straight into its backbone, loads into
 ``backbone.`` as it is, the 7x7 stem and the deep stem's ``conv1.{0,1,3,4,6}``
@@ -30,7 +34,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .checkpoint import interp_pos_embed
+
 _BN_STATS = (("_mean", "running_mean"), ("_variance", "running_var"))
+_POS_TABLES = ("position_embeddings", "pos_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -195,18 +202,25 @@ def emrt_trunk_key_map(num_enc_layers: int = 4, num_dec_layers: int = 2):
 
 
 def build_key_map(flat_p, model_name: str = "EMRT", encoder_type: str = "resnet50"):
-    """(pmap, smap, fold) of an EMRT: the trunk plus its backbone's map,
-    chosen as ``emrt_tpu/utils/pdparams.py::build_key_map`` chooses (MODEL.NAME
-    first, then the encoder type), with the CNN backbones the JAX package has
-    no map for (resnet50c, the other depths, ResNeXt50, ResNeSt50) under
-    ``cnn_backbone_map``."""
+    """(pmap, smap, fold) of a model, chosen as
+    ``emrt_tpu/utils/pdparams.py::build_key_map`` chooses. An EMRT: the
+    trunk plus its backbone's map (MODEL.NAME first, then the encoder type),
+    with the CNN backbones the JAX package has no map for (resnet50c, the
+    other depths, ResNeXt50, ResNeSt50) under ``cnn_backbone_map``. The zoo
+    by MODEL.NAME: SETR, UperNet (Swin, CSwin, Focal), Trans2Seg, DPT, FCN."""
     from . import pdparams_maps as M
 
     name = model_name or ""
     enc = (encoder_type or "").lower()
     if "EMRT" not in name:
-        raise NotImplementedError(f"model {model_name!r}: the port maps EMRT only; "
-                                  f"the zoo is ROADMAP.md queue 1, M11")
+        for tags, zoo_map in ((("SETR",), M.setr_key_map),
+                              (("UperNet", "Upernet"), M.upernet_key_map),
+                              (("Trans2Seg", "Trans2seg"), M.trans2seg_key_map),
+                              (("DPT",), M.dpt_key_map), (("FCN",), M.fcn_key_map)):
+            if any(t in name for t in tags):
+                return zoo_map(flat_p)
+        raise NotImplementedError(f"model {model_name!r}: no .pdparams key map in the port "
+                                  f"(SegFormer and Segmenter: ROADMAP.md queue 1, M11)")
     n_enc = sum(1 for k in flat_p if k.startswith("encoder_decoder/encoder_layer")
                 and k.endswith("norm1/scale"))
     n_dec = sum(1 for k in flat_p if k.startswith("encoder_decoder/decoder_layer")
@@ -255,17 +269,18 @@ def _pd_key(torch_key: str) -> str:
 
 def state_dict_from_flax(flat_params, flat_stats, model_name: str = "EMRT",
                          encoder_type: str = "resnet50") -> Dict[str, torch.Tensor]:
-    """The port's EMRT ``state_dict`` from the JAX package's parameters.
+    """The port's ``state_dict`` from the JAX package's parameters.
 
     flat_params / flat_stats: ``{'/'-joined flax path: array}`` of a JAX
-    EMRT's params and batch_stats (any subset: keys the map does not name
+    model's params and batch_stats (any subset: keys the map does not name
     are skipped); model_name / encoder_type: MODEL.NAME and
     MODEL.ENCODER.TYPE, which pick the backbone's map (``build_key_map``). Inverts each tag of the JAX converter: conv HWIO ->
     OIHW; a Dense kernel [in, out] -> Linear [out, in]; the q/k/v kernels
     and biases -> the fused ``in_proj_weight`` / ``in_proj_bias``; the
-    per-head ``out_proj`` kernel -> [out, in]. Where the JAX package folds
-    an UpHead conv bias into its BN mean, the conv bias is 0 and the mean is
-    taken as it is.
+    per-head ``out_proj`` kernel -> [out, in]; a ConvTranspose kernel
+    (flipped by the JAX converter) -> [in, out, kh, kw] unflipped. Where the
+    JAX package folds a conv bias into its BN mean (EMRT's UpHead, FCN's
+    head), the conv bias is 0 and the mean is taken as it is.
     """
     pmap, smap, fold = build_key_map(flat_params, model_name, encoder_type)
     out: Dict[str, np.ndarray] = {}
@@ -278,6 +293,8 @@ def state_dict_from_flax(flat_params, flat_stats, model_name: str = "EMRT",
             key = _torch_key(pdkey)
             if tag == "conv":
                 out[key] = a.transpose(3, 2, 0, 1)
+            elif tag == "convt":     # the JAX converter's flipped [kh, kw, in, out]
+                out[key] = a[::-1, ::-1].transpose(2, 3, 0, 1)
             elif tag == "pos_embed":     # the JAX converter interpolates on load
                 out[key] = a
             elif tag == "id":
@@ -325,8 +342,11 @@ def is_backbone_only_pdparams(pd_keys) -> bool:
 def load_pdparams(model: nn.Module, pd: Dict[str, np.ndarray]) -> dict:
     """Load a Paddle-layout state dict (``read_pdparams`` output) into model.
 
-    Returns a report {matched, missing, unused}; raises on a shape mismatch.
-    Tensors the model has but ``pd`` lacks keep their current values. Keys
+    Returns a report {matched, missing, unused}; raises on a shape mismatch,
+    except that a ViT position table of another token count is bilinearly
+    re-interpolated (``checkpoint.py::interp_pos_embed``, as the JAX
+    converter does). Tensors the model has but ``pd`` lacks keep their
+    current values. Keys
     starting with one of the model's ``pdparams_unused`` prefixes (weights
     the reference registers but its forward never reads) are not reported.
     A prefix-less ImageNet ResNet dict loads into the model's ``backbone``
@@ -347,6 +367,8 @@ def load_pdparams(model: nn.Module, pd: Dict[str, np.ndarray]) -> dict:
         a = np.asarray(pd[pd_key], dtype=np.float32)
         if key in transposed:
             a = a.T
+        if a.shape != tuple(t.shape) and key.endswith(_POS_TABLES) and a.ndim == 3:
+            a = interp_pos_embed(a, tuple(t.shape))
         if a.shape != tuple(t.shape):
             raise ValueError(f"{pd_key}: shape {a.shape} does not fit {key} "
                              f"{tuple(t.shape)}")

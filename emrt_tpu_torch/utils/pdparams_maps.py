@@ -272,3 +272,267 @@ def cnn_backbone_map(flat_p, flax="backbone", pd="backbone") -> Maps:
             _dense(pmap, f"{fl}/splat/fc2", f"{pdb}.splat.fc2")
         i, b = i + 1, b + 1
     return pmap, smap, fold
+
+
+# ---------------------------------------------------------------------------
+# The zoo (copies of the JAX package's maps)
+# ---------------------------------------------------------------------------
+
+def vit_mla_backbone_map(flat_p, flax="encoder", pd="encoder") -> Maps:
+    """ViT_MLA = ViT core + Conv_MLA aggregation + per-tap norm_{i}."""
+    pmap, smap, fold = vit_backbone_map(flat_p, flax=f"{flax}/transformer",
+                                        pd=f"{pd}.transformer")
+    for i in range(4):
+        _ln(pmap, f"{flax}/norm_{i}", f"{pd}.norm_{i}")
+    for n in (2, 3, 4, 5):
+        for suffix in ("_1x1", ""):
+            _conv_bn(pmap, smap, f"{flax}/mla/mla_p{n}{suffix}",
+                     f"{pd}.mla.mla_p{n}{suffix}.0", f"{pd}.mla.mla_p{n}{suffix}.1")
+    return pmap, smap, fold
+
+
+def swin_backbone_map(flat_p, flax="encoder", pd="encoder") -> Maps:
+    """SwinTransformer (swin_transformer.py:575-651): patch_embedding
+    conv+norm, stages.{s}.blocks.{b} with fused-qkv WindowAttention and a
+    relative_position_bias_table, stages.{s}.downsample PatchMerging. The
+    JAX Swin's per-stage norm{s} are the UperNet's layer_norms (mapped by
+    ``upernet_key_map``)."""
+    pmap, smap, fold = _mk()
+    _convp(pmap, f"{flax}/patch_embed", f"{pd}.patch_embedding.patch_embed", bias=True)
+    _ln(pmap, f"{flax}/patch_norm", f"{pd}.patch_embedding.norm")
+    blocks = _stage_blocks(flat_p, rf"{flax}/stage(\d+)_block(\d+)/norm1/scale")
+    n_stages = max(s for s, _ in blocks) + 1 if blocks else 0
+    for s, b in blocks:
+        fl = f"{flax}/stage{s}_block{b}"
+        pdb = f"{pd}.stages.{s}.blocks.{b}"
+        _ln(pmap, f"{fl}/norm1", f"{pdb}.norm1")
+        _ln(pmap, f"{fl}/norm2", f"{pdb}.norm2")
+        _dense(pmap, f"{fl}/attn/qkv", f"{pdb}.attn.qkv")
+        _dense(pmap, f"{fl}/attn/proj", f"{pdb}.attn.proj")
+        pmap[f"{fl}/attn/relative_position_bias_table"] = (
+            f"{pdb}.attn.relative_position_bias_table", "id")
+        _dense(pmap, f"{fl}/mlp/Dense_0", f"{pdb}.mlp.fc1")
+        _dense(pmap, f"{fl}/mlp/Dense_1", f"{pdb}.mlp.fc2")
+    for s in range(max(n_stages - 1, 0)):
+        _ln(pmap, f"{flax}/merge{s}/norm", f"{pd}.stages.{s}.downsample.norm")
+        _dense(pmap, f"{flax}/merge{s}/reduction", f"{pd}.stages.{s}.downsample.reduction",
+               bias=False)
+    return pmap, smap, fold
+
+
+def focal_backbone_map(flat_p, flax="encoder", pd="encoder") -> Maps:
+    """FocalTransformer (focal_transformer.py:819-1000): patch_embed,
+    layers.{s}.blocks.{b} with fused-qkv focal attention (three bias-table
+    families + fc pool_layers) and a PatchEmbed ``layers.{s}.downsample``."""
+    pmap, smap, fold = _mk()
+    _convp(pmap, f"{flax}/patch_embed/proj", f"{pd}.patch_embed.proj", bias=True)
+    _ln(pmap, f"{flax}/patch_embed/norm", f"{pd}.patch_embed.norm")
+    blocks = _stage_blocks(flat_p, rf"{flax}/stage(\d+)_block(\d+)/norm1/scale")
+    n_stages = max(s for s, _ in blocks) + 1 if blocks else 0
+    for s, b in blocks:
+        fl = f"{flax}/stage{s}_block{b}"
+        pdb = f"{pd}.layers.{s}.blocks.{b}"
+        _ln(pmap, f"{fl}/norm1", f"{pdb}.norm1")
+        _ln(pmap, f"{fl}/norm2", f"{pdb}.norm2")
+        k = 0
+        while f"{fl}/pool_layers{k}/kernel" in flat_p:
+            _dense(pmap, f"{fl}/pool_layers{k}", f"{pdb}.pool_layers.{k}")
+            k += 1
+        _dense(pmap, f"{fl}/attn/qkv", f"{pdb}.attn.qkv")
+        _dense(pmap, f"{fl}/attn/proj", f"{pdb}.attn.proj")
+        attn = f"{pdb}.attn.relative_position_bias_table"
+        pmap[f"{fl}/attn/relative_position_bias_table"] = (attn, "id")
+        if f"{fl}/attn/relative_position_bias_table_to_neighbors" in flat_p:
+            pmap[f"{fl}/attn/relative_position_bias_table_to_neighbors"] = (
+                f"{attn}_to_neighbors", "id")
+        k = 0
+        while f"{fl}/attn/relative_position_bias_table_to_windows{k}" in flat_p:
+            pmap[f"{fl}/attn/relative_position_bias_table_to_windows{k}"] = (
+                f"{attn}_to_windows.{k}", "id")
+            k += 1
+        _dense(pmap, f"{fl}/mlp/Dense_0", f"{pdb}.mlp.fc1")
+        _dense(pmap, f"{fl}/mlp/Dense_1", f"{pdb}.mlp.fc2")
+    for s in range(max(n_stages - 1, 0)):
+        _convp(pmap, f"{flax}/downsample{s}/proj", f"{pd}.layers.{s}.downsample.proj",
+               bias=True)
+        _ln(pmap, f"{flax}/downsample{s}/norm", f"{pd}.layers.{s}.downsample.norm")
+    return pmap, smap, fold
+
+
+def _uper_head_map(pmap, smap, flat_p, flax="decoder", pd="decoder"):
+    """UperHead (decoders/uper_head.py:29-69 + psp_head.py:30-44)."""
+    i = 0
+    while f"{flax}/psp{i}/Conv_0/kernel" in flat_p:
+        _conv_bn(pmap, smap, f"{flax}/psp{i}", f"{pd}.psp_modules.pool_branches.{i}.1",
+                 f"{pd}.psp_modules.pool_branches.{i}.2")
+        i += 1
+    _conv_bn(pmap, smap, f"{flax}/bottleneck", f"{pd}.bottleneck.0", f"{pd}.bottleneck.1")
+    i = 0
+    while f"{flax}/lateral{i}/Conv_0/kernel" in flat_p:
+        _conv_bn(pmap, smap, f"{flax}/lateral{i}", f"{pd}.lateral_convs.{i}.0",
+                 f"{pd}.lateral_convs.{i}.1")
+        _conv_bn(pmap, smap, f"{flax}/fpn{i}", f"{pd}.fpn_convs.{i}.0",
+                 f"{pd}.fpn_convs.{i}.1")
+        i += 1
+    _conv_bn(pmap, smap, f"{flax}/fpn_bottleneck", f"{pd}.fpn_bottleneck.0",
+             f"{pd}.fpn_bottleneck.1")
+    _convp(pmap, f"{flax}/conv_seg", f"{pd}.conv_seg", bias=True)
+
+
+def _fcn_head_map(pmap, smap, flat_p, flax="aux_decoder", pd="aux_decoder"):
+    """Zoo FCNHead (decoders/fcn_head.py:45-67)."""
+    i = 0
+    while f"{flax}/conv{i}/Conv_0/kernel" in flat_p:
+        _conv_bn(pmap, smap, f"{flax}/conv{i}", f"{pd}.convs.{i}.0", f"{pd}.convs.{i}.1")
+        i += 1
+    if f"{flax}/conv_cat/Conv_0/kernel" in flat_p:
+        _conv_bn(pmap, smap, f"{flax}/conv_cat", f"{pd}.conv_cat.0", f"{pd}.conv_cat.1")
+    _convp(pmap, f"{flax}/conv_seg", f"{pd}.conv_seg", bias=True)
+
+
+def upernet_key_map(flat_p) -> Maps:
+    """UperNet (upernet.py:41-106): a Swin, CSwin or Focal encoder, the
+    top-level layer_norms, the UperHead decoder and the FCNHead aux."""
+    if any(k.endswith("relative_position_bias_table_to_neighbors")
+           or "relative_position_bias_table_to_windows" in k for k in flat_p):
+        pmap, smap, fold = focal_backbone_map(flat_p)
+        norms = "layer_norm{s}"
+    elif any(k.startswith("encoder/stage0_block0/attn/qkv") for k in flat_p):
+        pmap, smap, fold = swin_backbone_map(flat_p)
+        norms = "encoder/norm{s}"
+    elif any(k.startswith("encoder/stage0_block0/qkv") for k in flat_p):
+        pmap, smap, fold = cswin_backbone_map(flat_p, flax="encoder", pd="encoder")
+        norms = "layer_norm{s}"
+    else:
+        raise NotImplementedError("no .pdparams map for this UperNet encoder")
+    s = 0
+    while f"{norms.format(s=s)}/scale" in flat_p:
+        _ln(pmap, norms.format(s=s), f"layer_norms.{s}")
+        s += 1
+    _uper_head_map(pmap, smap, flat_p)
+    _fcn_head_map(pmap, smap, flat_p)
+    return pmap, smap, fold
+
+
+def fcn_key_map(flat_p) -> Maps:
+    """FCN (fcn.py:22-64): the ResNet ``cnn_encoder``, ``head.conv_1.{0
+    conv (biased), 1 bn}`` and ``head.cls``. The JAX package folds the head
+    conv's bias into the BatchNorm mean."""
+    pmap, smap, fold = cnn_backbone_map(flat_p, flax="cnn_encoder", pd="cnn_encoder")
+    _conv_bn(pmap, smap, "head_conv", "head.conv_1.0", "head.conv_1.1")
+    fold["head_conv/BatchNorm_0/mean"] = "head.conv_1.0.bias"
+    _convp(pmap, "head_cls", "head.cls", bias=True)
+    return pmap, smap, fold
+
+
+def trans2seg_key_map(flat_p) -> Maps:
+    """Trans2Seg (trans2seg.py:24-108 + trans2seg_transformer.py:88-421 +
+    trans2seg_head.py:21-130)."""
+    pmap, smap, fold = cnn_backbone_map(flat_p, flax="cnn_encoder", pd="cnn_encoder")
+    enc, dec = "transformer_encoder", "transformer_decoder"
+    _dense(pmap, "hybrid_embed", "hybrid_embed.proj")
+    pmap["cls_token"] = (f"{enc}.cls_token", "id")
+    pmap["pos_embed"] = (f"{enc}.pos_embed", "pos_embed")
+    i = 0
+    while f"enc_block{i}/norm1/scale" in flat_p:
+        fl, pdb = f"enc_block{i}", f"{enc}.blocks_encoder.{i}"
+        _ln(pmap, f"{fl}/norm1", f"{pdb}.norm1")
+        _ln(pmap, f"{fl}/norm2", f"{pdb}.norm2")
+        for j, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+            pmap[f"{fl}/attn/{proj}/kernel"] = (f"{pdb}.attn.qkv.weight", f"qkv:{j}")
+        pmap[f"{fl}/attn/out_proj/kernel"] = (f"{pdb}.attn.proj.weight", "out_heads")
+        pmap[f"{fl}/attn/out_proj/bias"] = (f"{pdb}.attn.proj.bias", "id")
+        _dense(pmap, f"{fl}/mlp/Dense_0", f"{pdb}.mlp.fc1")
+        _dense(pmap, f"{fl}/mlp/Dense_1", f"{pdb}.mlp.fc2")
+        i += 1
+    _ln(pmap, "enc_norm", f"{enc}.norm")
+    pmap["cls_embed"] = (f"{dec}.cls_embed", "id")
+    i = 0
+    while f"dec_block{i}/norm1/scale" in flat_p:
+        fl, pdb = f"dec_block{i}", f"{dec}.blocks_decoder.{i}"
+        for n in ("norm1", "norm1_clsembed", "norm2", "norm3", "norm4"):
+            _ln(pmap, f"{fl}/{n}", f"{pdb}.{n}")
+        _dense(pmap, f"{fl}/attn/fc_q", f"{pdb}.attn.fc_q", bias=False)
+        _dense(pmap, f"{fl}/attn/fc_kv", f"{pdb}.attn.fc_kv", bias=False)
+        _dense(pmap, f"{fl}/attn/proj", f"{pdb}.attn.proj")
+        for m in ("mlp", "mlp2", "mlp3"):
+            _dense(pmap, f"{fl}/{m}/Dense_0", f"{pdb}.{m}.fc1")
+            _dense(pmap, f"{fl}/{m}/Dense_1", f"{pdb}.{m}.fc2")
+        i += 1
+    for lay in ("lay1", "lay2", "lay3"):
+        pdl = f"cnn_head.{lay}.block"
+        _convp(pmap, f"{lay}/depthwise", f"{pdl}.depthwise")
+        _bn(pmap, smap, f"{lay}/bn_depth", f"{pdl}.bn_depth")
+        _convp(pmap, f"{lay}/pointwise", f"{pdl}.pointwise")
+        _bn(pmap, smap, f"{lay}/bn_point", f"{pdl}.bn_point")
+    _convp(pmap, "conv_c1", "cnn_head.conv_c1.conv")
+    _bn(pmap, smap, "conv_c1_bn", "cnn_head.conv_c1.bn")
+    _convp(pmap, "pred", "cnn_head.pred", bias=True)
+    return pmap, smap, fold
+
+
+def dpt_key_map(flat_p) -> Maps:
+    """DPT (dpt.py:25-41 + dpt_head.py:157-230); ``head.refine.3.resblock1``
+    is registered by the reference but never runs."""
+    pmap, smap, fold = vit_backbone_map(flat_p, flax="backbone", pd="backbone.transformer")
+    for i in range(4):
+        if f"readout_proj{i}/kernel" in flat_p:
+            _dense(pmap, f"readout_proj{i}", f"head.readout_oper.{i}.proj.0")
+        _convp(pmap, f"process{i}_proj", f"head.process.{i}.0", bias=True)
+        _convp(pmap, f"layers_rn{i}", f"head.layers_rn.{i}")
+    for i in (0, 1):
+        pmap[f"process{i}_up/kernel"] = (f"head.process.{i}.1.weight", "convt")
+        pmap[f"process{i}_up/bias"] = (f"head.process.{i}.1.bias", "id")
+    _convp(pmap, "process3_down", "head.process.3.1", bias=True)
+
+    def resblock(fl, pdb):
+        for c in ("conv1", "conv2"):
+            _convp(pmap, f"{fl}/{c}", f"{pdb}.{c}")
+        for b in ("bn1", "bn2"):
+            _bn(pmap, smap, f"{fl}/{b}", f"{pdb}.{b}")
+
+    for i in range(4):
+        if f"refine{i}/resblock1/conv1/kernel" in flat_p:
+            resblock(f"refine{i}/resblock1", f"head.refine.{i}.resblock1")
+        resblock(f"refine{i}/resblock2", f"head.refine.{i}.resblock2")
+        _convp(pmap, f"refine{i}/out_conv", f"head.refine.{i}.out_conv", bias=True)
+    _convp(pmap, "head_conv", "head.head.0")
+    _bn(pmap, smap, "head_bn", "head.head.1")
+    _convp(pmap, "head_cls", "head.head.4", bias=True)
+    return pmap, smap, fold
+
+
+def setr_key_map(flat_p) -> Maps:
+    """SETR MLA / PUP / Naive (setr.py:28-170); the decoder family is read
+    from the flax tree."""
+    if any(k.startswith("decoder/head2_conv0") for k in flat_p):
+        pmap, smap, fold = vit_mla_backbone_map(flat_p)
+        for n in (2, 3, 4, 5):
+            for c, seq in ((0, 0), (1, 3)):
+                _conv_bn(pmap, smap, f"decoder/head{n}_conv{c}", f"decoder.head{n}.{seq}",
+                         f"decoder.head{n}.{seq + 1}")
+        _convp(pmap, "decoder/cls", "decoder.cls", bias=True)
+        for n in (2, 3, 4, 5):
+            fl = f"aux_decoder{n}"
+            if f"{fl}/aux/kernel" in flat_p:
+                _convp(pmap, f"{fl}/aux", f"{fl}.aux")
+            elif f"{fl}/aux_0/kernel" in flat_p:
+                _convp(pmap, f"{fl}/aux_0", f"{fl}.aux_0")
+                _convp(pmap, f"{fl}/aux_1", f"{fl}.aux_1")
+        return pmap, smap, fold
+    pmap, smap, fold = vit_backbone_map(flat_p, flax="encoder", pd="encoder.transformer")
+
+    def up_head(prefix):
+        _ln(pmap, f"{prefix}/norm", f"{prefix}.norm")
+        i = 0
+        while f"{prefix}/conv_{i}/kernel" in flat_p:
+            _convp(pmap, f"{prefix}/conv_{i}", f"{prefix}.conv_{i}", bias=True)
+            if f"{prefix}/syncbn_fc_{i}/scale" in flat_p:
+                _bn(pmap, smap, f"{prefix}/syncbn_fc_{i}", f"{prefix}.syncbn_fc_{i}")
+            i += 1
+
+    up_head("decoder")
+    for n in (2, 3, 4, 5):
+        if f"aux_decoder{n}/conv_0/kernel" in flat_p:
+            up_head(f"aux_decoder{n}")
+    return pmap, smap, fold

@@ -153,9 +153,9 @@ def test_bf16_forward_runs_under_autocast():
 
 
 @pytest.mark.parametrize("overrides, match", [
-    ({"MODEL.NAME": "SETR_MLA"}, "only EMRT is ported"),
-    ({"MODEL.NAME": "UperNet_Swin"}, "M11"),
-    ({"MODEL.NAME": "Trans2Seg"}, "M11"),
+    ({"MODEL.NAME": "Segformer"}, "M11"),
+    ({"MODEL.NAME": "Segmenter"}, "M11"),
+    ({"MODEL.NAME": "PSPNet"}, "not supported"),
     ({"MODEL.ENCODER.TYPE": "swin"}, "backbone swin"),
     ({"MODEL.ENCODER.TYPE": "resnet42"}, "no resnet depth 42"),
     ({"MODEL.OUTPUT_STRIDE": 4}, "output_stride 4"),
