@@ -82,6 +82,28 @@ each optimizer, loss and schedule that no yaml uses (Adadelta, RMSProp;
 MultiCE, OHEM; WarmupPolyLR, WarmupCosineLR, WarmupMultiStepLR; finite
 losses, each step's lr equal to the schedule's: a check of the wiring,
 the schedules' values are held to the JAX package's on the CPU).
+Phase 7 drives data parallelism (``emrt_tpu_torch.parallel``) on the
+flagship at full width and depth with seeded weights: two ranks, each a
+process of its own (``parallel.launch.run_ranks``, a file store), on the
+one card over gloo (NCCL refuses two ranks on one device). (a) One float32
+DP step (dropout 0, SyncBatchNorm on batch statistics, DDP), 4 rows a rank,
+against one process's step on the same 8 rows through the kernels; rank
+1's rows have other classes, another image mean and scale and 80-100% of
+their pixels ignored, so that a mean of the ranks' means or BatchNorm
+statistics taken per rank show: the loss within DP_LOSS_RTOL, the
+gradients within TRAIN_BN_GRAD_RTOL (L2), the BatchNorm running statistics
+within 1e-4 x max; (b) 6 K1 and 6 backward launches a step on each rank;
+(c) ``train.main --device cuda`` on both ranks, bf16, 8 rows a rank, with a
+save and a sharded eval, then ``--resume``: finite losses equal on both
+ranks, files written by rank 0 only, the launch counts, and one-process
+``val.main`` on the DP run's best_model.pt within 1e-3 of its mIoU; (d)
+each rank's bf16 DP step time and peak memory, which say nothing of
+scaling while two ranks share a card. Where there are two cards, (a)-(d)
+run again over NCCL, a card a rank; else the phase prints that the NCCL
+leg was not run. (e) The CLIs as a user launches them: ``torchrun
+--standalone --nproc_per_node 2 -m emrt_tpu_torch.train --device cuda``
+for two iterations, then ``-m emrt_tpu_torch.val`` on its best_model.pt,
+whose mIoU must be the run's within 1e-3.
 
 Any failed check raises, and the script then exits non-zero without the
 final line. It prints its own time, then a JSON object describing each
@@ -1517,6 +1539,328 @@ def phase6(card):
     return rows
 
 
+# ---------------------------------------------------------------- phase 7: DP
+
+DP_WORLD, DP_BS = 2, 4                   # (a): two ranks of 4 against one process of 8
+DP_ITERS, DP_RESUME_ITERS, DP_TIMED = 4, 6, 5
+# (a): the DP loss against the one process's: the two differ in float32 sum
+# order only (equal to 7 digits on the H100)
+DP_LOSS_RTOL = 1e-5
+# BatchNorm running statistics of the DP step against the one-process step,
+# as a share of each tensor's largest value
+DP_STATS_TOL = 1e-4
+# (e): train.main's iterations under torchrun
+DP_TORCHRUN_ITERS = 2
+
+
+def _dp_step(model, cfg, device):
+    """make_train_step over ``model`` with SyncBatchNorm under DDP, as the
+    train CLI builds it."""
+    from torch.nn.parallel import DistributedDataParallel
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.parallel import convert_sync_batchnorm
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
+    convert_sync_batchnorm(model)
+    optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
+    ddp = DistributedDataParallel(model, device_ids=[device], broadcast_buffers=False)
+    return make_train_step(ddp, get_loss_function(cfg), optimizer)
+
+
+def dp_reference(path):
+    """(a)'s global batch of 8 and one process's float32 step on it (dropout
+    0, BatchNorm on batch statistics, through the kernels), saved at ``path``
+    with the initial weights. Rank 1's rows differ from rank 0's in what
+    a data-parallel fault would weigh wrongly: their images have another mean
+    and scale (BatchNorm statistics taken per rank), their labels other
+    classes, and 80-100% of their pixels are ignored (a mean of the ranks'
+    means)."""
+    import torch
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
+    cfg = _train_config()
+    cfg.TRAIN.DTYPE = "float32"
+    torch.manual_seed(0)
+    model = get_model(cfg, device="cuda", dtype=torch.float32)
+    init = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    _set_kernel_and_dropout(model, dropout=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, (h, w) = DP_WORLD * DP_BS, cfg.DATA.CROP_SIZE
+    half = cfg.DATA.NUM_CLASSES // 2
+    labels = torch.randint(0, half, (n, h, w), generator=gen, device="cuda")
+    labels[DP_BS:] += half
+    share = torch.tensor([0.0, 0.1, 0.0, 0.2, 0.9, 1.0, 0.8, 0.9], device="cuda")
+    ignored = torch.rand((n, h, w), generator=gen, device="cuda") < share[:, None, None]
+    images = torch.randn((n, 3, h, w), generator=gen, device="cuda")
+    images[DP_BS:] = 3 * images[DP_BS:] + 2
+    batch = {"image": images, "label": torch.where(ignored, 255, labels)}
+    step = make_train_step(model, get_loss_function(cfg),
+                           get_optimizer(cfg, model, get_scheduler(cfg)))
+    loss = step(batch).item()
+    torch.save({"init": init, "loss": loss, "batch": {k: v.cpu() for k, v in batch.items()},
+                "grads": torch.cat([p.grad.flatten() for p in model.parameters()]).cpu(),
+                "stats": {k: v.cpu() for k, v in model.state_dict().items()
+                          if "running" in k}}, path)
+    del model, step
+    torch.cuda.empty_cache()
+    return str(path)
+
+
+def dp_step_rank(rank, world, devices, reference):
+    """(a) and (b) on one rank: one float32 DP step of rows [4r, 4r + 4) of
+    the global batch at ``reference`` (``dp_reference``), its loss as the
+    train CLI logs it (the ranks' mean), gradients and running statistics
+    against the one-process step's, and its kernel launches."""
+    import torch
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.parallel.mesh import all_reduce_sum
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(devices[rank])
+    torch.cuda.set_device(device)
+    ref = torch.load(reference, weights_only=True)
+    cfg = _train_config()
+    cfg.TRAIN.DTYPE = "float32"
+    model = get_model(cfg, device=device, dtype=torch.float32)
+    model.load_state_dict(ref["init"])
+    _set_kernel_and_dropout(model, dropout=0.0)
+    step = _dp_step(model, cfg, device)
+    part = slice(rank * DP_BS, (rank + 1) * DP_BS)
+    batch = {k: v[part].to(device) for k, v in ref["batch"].items()}
+    _reset_counts()
+    loss = step(batch)
+    torch.cuda.synchronize()
+    out = {"launches_a": _counts()}
+    out["loss"], out["loss_ref"] = (all_reduce_sum(loss.clone()) / world).item(), ref["loss"]
+    grads = torch.cat([p.grad.flatten() for p in model.parameters()]).cpu()
+    out["grad_rel"] = ((grads - ref["grads"]).norm() / ref["grads"].norm()).item()
+    stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
+    out["stats_rel"] = max(((stats[k] - v).abs().max() / v.abs().max()).item()
+                           for k, v in ref["stats"].items())
+    out["n_stats"] = len(stats)
+    del model, step, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_step_failures(out) -> list[str]:
+    """The checks of (a) and (b) that ``dp_step_rank``'s result fails."""
+    checks = (
+        (abs(out["loss"] - out["loss_ref"]) <= DP_LOSS_RTOL * abs(out["loss_ref"]),
+         f"DP loss {out['loss']} vs one process's {out['loss_ref']} (rtol {DP_LOSS_RTOL})"),
+        (out["grad_rel"] <= TRAIN_BN_GRAD_RTOL,
+         f"DP gradients differ by {out['grad_rel']} (L2, tol {TRAIN_BN_GRAD_RTOL})"),
+        (out["n_stats"] > 100 and out["stats_rel"] <= DP_STATS_TOL,
+         f"running statistics differ by {out['stats_rel']} x max (tol {DP_STATS_TOL})"),
+        (tuple(out["launches_a"]) == (6, 6),
+         f"a DP step launched forward/backward {out['launches_a']}"))
+    return [what for ok, what in checks if not ok]
+
+
+def phase7_rank(rank, world, devices, reference, save_dir):
+    """One rank of phase 7, a process of its own (``parallel.launch``):
+    (a), (b) (``dp_step_rank``); (c) ``train.main`` (bf16, 8 rows a rank,
+    ``--device cuda``: the rank's card) with a save and an eval, then
+    ``--resume``; (d) the bf16 DP step's ms and peak memory. Returns numbers
+    only."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.train import main as train_main
+    from emrt_tpu_torch.utils import checkpoint
+    out = dp_step_rank(rank, world, devices, reference)
+    device = torch.device(devices[rank])
+
+    written = []
+    save = checkpoint._save
+
+    def counting_save(obj, path):
+        written.append(Path(path).name)
+        save(obj, path)
+
+    checkpoint._save = counting_save
+    common = ["--config", str(CONFIG), "--device", "cuda", "--seed", "0",
+              "DATA.DATASET", "Synthetic", "DATA.BATCH_SIZE", str(TRAIN_BS),
+              "TRAIN.DTYPE", "bfloat16", "SAVE_DIR", save_dir,
+              "LOGGING_INFO_FREQ", "2", "SAVE_FREQ_CHECKPOINT", str(DP_ITERS),
+              "VALIDATE_FREQ", str(DP_ITERS)]
+    _reset_counts()
+    t0 = time.perf_counter()
+    first = train_main(["--iters", str(DP_ITERS), *common])
+    second = train_main(["--iters", str(DP_RESUME_ITERS), "--resume", *common])
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["launches_c"] = _counts()
+    out["first"], out["second"], out["written"] = first, second, written
+    checkpoint._save = save
+
+    cfg = _train_config()
+    torch.manual_seed(0)
+    model = get_model(cfg, device=device)
+    step = _dp_step(model, cfg, device)
+    gen = torch.Generator(device=device).manual_seed(3 + rank)
+    h, w = cfg.DATA.CROP_SIZE
+    batch = {"image": torch.randn((TRAIN_BS, 3, h, w), generator=gen, device=device),
+             "label": torch.randint(0, cfg.DATA.NUM_CLASSES, (TRAIN_BS, h, w),
+                                    generator=gen, device=device)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    out["step_ms"] = cuda_ms(lambda: step(batch), reps=DP_TIMED, warmup=2)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    grads = torch.ones(sum(p.numel() for p in model.parameters()), device=device)
+    out["allreduce_ms"] = cuda_ms(lambda: dist.all_reduce(grads), reps=DP_TIMED, warmup=1)
+    out["finite"] = bool(np.isfinite(first["losses"] + second["losses"]).all())
+    return out
+
+
+def phase7_leg(card, backend, devices, reference, save_dir):
+    """Phase 7 over ``backend`` with rank r on ``devices[r]``: the checks of
+    (a)-(d) and single-process ``val.main`` on the DP run's best_model.pt.
+    Returns the kernels' launches in the two ranks' ``train.main`` runs."""
+    import json
+
+    from emrt_tpu_torch.parallel.launch import run_ranks
+    from emrt_tpu_torch.val import main as val_main
+    t0 = time.perf_counter()
+    ranks = run_ranks(phase7_rank, DP_WORLD, args=(devices, reference, save_dir),
+                      backend=backend, timeout=900)
+    save_dir = Path(save_dir)
+    leg = f"phase 7 ({backend}, {DP_WORLD} ranks on {', '.join(devices)})"
+    print(f"{leg}: the ranks ran in {time.perf_counter() - t0:.1f} s")
+    for r, out in enumerate(ranks):
+        print(f"{leg}: rank {r} (a) float32 DP step of {DP_BS} rows: loss {out['loss']:.9g} "
+              f"against one process's {out['loss_ref']:.9g} on all {DP_WORLD * DP_BS} (rtol "
+              f"{DP_LOSS_RTOL}); gradients |dp-one|/|one| (L2) {out['grad_rel']:.3e} (tol "
+              f"{TRAIN_BN_GRAD_RTOL}); BatchNorm running statistics within "
+              f"{out['stats_rel']:.3e} x max ({out['n_stats']} tensors, tol {DP_STATS_TOL}); "
+              f"(b) launches forward/backward {out['launches_a']}")
+        failures = dp_step_failures(out)
+        check(not failures, f"rank {r}: {'; '.join(failures)}")
+        first, second = out["first"], out["second"]
+        steps = first["steps"] + second["steps"]
+        forwards = first["eval_forwards"] + second["eval_forwards"] + (
+            2 * FLOPS_FORWARDS if r == 0 else 0)
+        print(f"{leg}: rank {r} (c) train.main bf16 {TRAIN_BS} rows a rank, {DP_ITERS} + "
+              f"{DP_RESUME_ITERS - DP_ITERS} iterations (--resume) in {out['train_s']:.1f} s: "
+              f"window losses {[round(x, 4) for x in first['losses'] + second['losses']]}, "
+              f"mIoU {first['mious'] + second['mious']}, {forwards} eval and FLOPs forwards, "
+              f"launches forward/backward {out['launches_c']}, files written {out['written']}")
+        check(out["finite"], f"rank {r}: losses {first['losses'] + second['losses']}")
+        check(first["last_iter"] == DP_ITERS and second["start_iter"] == DP_ITERS
+              and second["last_iter"] == DP_RESUME_ITERS,
+              f"rank {r}: ran to {first['last_iter']}, resumed {second['start_iter']} -> "
+              f"{second['last_iter']}")
+        check(tuple(out["launches_c"]) == (6 * (steps + forwards), 6 * steps),
+              f"rank {r}: launches {out['launches_c']} for {steps} steps and {forwards} "
+              f"forwards")
+        check(bool(out["written"]) == (r == 0), f"rank {r} wrote {out['written']}")
+        check(first["losses"] == ranks[0]["first"]["losses"]
+              and second["mious"] == ranks[0]["second"]["mious"],
+              f"rank {r} logged other losses or mIoU than rank 0")
+        note = ("two ranks share one card: not a scaling figure" if len(set(devices)) == 1
+                else "one card a rank")
+        print(f"{leg}: rank {r} (d) bf16 DP step, {TRAIN_BS} rows a rank: "
+              f"{out['step_ms']:.2f} ms (median of {DP_TIMED}, CUDA events), peak memory "
+              f"{out['peak_gib']:.2f} GiB; one all-reduce of the model's float32 gradients "
+              f"alone {out['allreduce_ms']:.2f} ms ({card}; {note})")
+    check(sorted(p.name for p in (save_dir / "checkpoints").iterdir())
+          == [f"iter_{DP_RESUME_ITERS}.pt"], "checkpoints after --resume")
+    best = json.loads((save_dir / "best_model.json").read_text())["best_miou"]
+    check(best == max(ranks[0]["first"]["mious"] + ranks[0]["second"]["mious"]),
+          f"best_model.json {best}")
+    _reset_counts()
+    result = val_main(["--config", str(CONFIG), "--device", "cuda", "--model_path",
+                       str(save_dir / "best_model.pt"), "DATA.DATASET", "Synthetic",
+                       "TRAIN.DTYPE", "bfloat16"])
+    print(f"{leg}: one-process val.main on the DP run's best_model.pt: mIoU "
+          f"{result['miou']:.6f} against the DP run's {best:.6f}")
+    check(abs(result["miou"] - best) <= F6_MIOU_TOL,
+          f"val.main gives mIoU {result['miou']}, the DP run {best}")
+    return tuple(sum(out["launches_c"][i] for out in ranks) for i in range(2))
+
+
+def _run_group(cmd, timeout: float) -> str:
+    """Run ``cmd`` from the checkout's root in a session of its own and
+    return its standard output; the whole session is killed if it does not
+    end within ``timeout`` seconds, and a non-zero exit raises."""
+    import os
+    import signal
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise RuntimeError(f"{' '.join(cmd)} did not end in {timeout:.0f} s:\n{out[-4000:]}")
+    check(proc.returncode == 0, f"{' '.join(cmd)} exited {proc.returncode}:\n{out[-4000:]}")
+    return out
+
+
+def phase7_torchrun(save_dir):
+    """(e) The CLIs as a user launches them: ``torchrun --nproc_per_node 2 -m
+    emrt_tpu_torch.train --device cuda`` (each rank joins the group from
+    torchrun's environment, on ``cuda:LOCAL_RANK`` modulo the cards, over
+    NCCL where each rank has a card and gloo where they share one), then
+    ``-m emrt_tpu_torch.val`` on its best_model.pt: the sharded val's mIoU
+    equals the training run's best."""
+    import json
+
+    import torch
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", str(DP_WORLD), "-m"]
+    common = ["--config", str(CONFIG), "--device", "cuda"]
+    opts = ["DATA.DATASET", "Synthetic", "DATA.BATCH_SIZE", str(TRAIN_BS), "TRAIN.DTYPE",
+            "bfloat16", "SAVE_DIR", save_dir]
+    backend = "nccl" if torch.cuda.device_count() >= DP_WORLD else "gloo"
+    t0 = time.perf_counter()
+    out = _run_group([*launch, "emrt_tpu_torch.train", *common, "--iters",
+                      str(DP_TORCHRUN_ITERS), *opts], timeout=600)
+    check(f"ranks: {DP_WORLD}" in out and f"training done at iter {DP_TORCHRUN_ITERS}" in out,
+          f"torchrun train.main:\n{out[-4000:]}")
+    best = json.loads((Path(save_dir) / "best_model.json").read_text())["best_miou"]
+    out = _run_group([*launch, "emrt_tpu_torch.val", *common, "--model_path",
+                      str(Path(save_dir) / "best_model.pt"), *opts], timeout=600)
+    found = re.findall(r"final mIoU: ([0-9.]+)", out)
+    check(f"ranks: {DP_WORLD}" in out and len(found) == 1, f"torchrun val.main:\n{out[-4000:]}")
+    print(f"phase 7 (e): torchrun --nproc_per_node {DP_WORLD} (over {backend}) "
+          f"train.main --device cuda, {DP_TORCHRUN_ITERS} iterations, then val.main on its "
+          f"best_model.pt, in {time.perf_counter() - t0:.1f} s: val mIoU {found[0]} against "
+          f"the run's {best:.6f}")
+    check(abs(float(found[0]) - best) <= F6_MIOU_TOL,
+          f"torchrun val.main gives mIoU {found[0]}, the run {best}")
+
+
+def phase7(card):
+    """Data parallelism (``emrt_tpu_torch.parallel``): two ranks on the one
+    card over gloo (NCCL refuses two ranks on one device), then over NCCL
+    with a card a rank where there are two; then the CLIs under torchrun.
+    Returns the forward and backward launches of the ranks' ``train.main``
+    runs."""
+    import tempfile
+
+    import torch
+    torch.cuda.empty_cache()
+    launches = (0, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        reference = dp_reference(Path(tmp) / "reference.pt")
+        legs = [("gloo", ["cuda:0"] * DP_WORLD)]
+        if torch.cuda.device_count() >= DP_WORLD:
+            legs.append(("nccl", [f"cuda:{r}" for r in range(DP_WORLD)]))
+        for backend, devices in legs:
+            got = phase7_leg(card, backend, devices, reference, str(Path(tmp) / backend))
+            launches = tuple(a + b for a, b in zip(launches, got))
+        phase7_torchrun(str(Path(tmp) / "torchrun"))
+    if torch.cuda.device_count() < DP_WORLD:
+        print(f"phase 7: the NCCL leg was not run: {torch.cuda.device_count()} card(s), "
+              f"it needs {DP_WORLD}")
+    print(f"phase 7: K1 / K2-K3 launches in the ranks' train.main runs: {launches}")
+    return launches
+
+
 _CATEGORIES = (   # (category, substrings of a kernel's name), first match wins
     ("K1 deformable fwd", ("ms_deform_attn_fwd",)),
     ("K2+K3 deformable bwd (fused)", ("ms_deform_attn_bwd",)),
@@ -1599,6 +1943,7 @@ def main():
         _, variant_launches = phase4(card)
         _, inference_launches = phase5(card, save_dir)
     phase6(card)
+    dp_launches = phase7(card)
     from emrt_tpu_torch.ops import deformable_cuda
     name, levels, len_q = SHAPES[0]
     fwd = fwd_times[name, BS, torch.bfloat16]
@@ -1612,6 +1957,7 @@ def main():
          "replaces": "emrt_tpu/ops/deformable_pallas.py:50",
          "launches": launches, "launches_train": train_launches[0],
          "launches_variants": variant_launches[0], "launches_inference": inference_launches,
+         "launches_dp": dp_launches[0],
          "max_abs_err": max_err, "ms": fwd["random"], "ms_on_the_grid": fwd["on the grid"],
          "ms_bs8": fwd_times[name, TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": fwd["plain"], "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
@@ -1621,6 +1967,7 @@ def main():
          "replaces": "emrt_tpu/ops/deformable_pallas.py:200 "
                      "emrt_tpu/ops/deformable_pallas.py:277",
          "launches": train_launches[1], "launches_variants": variant_launches[1],
+         "launches_dp": dp_launches[1],
          "max_abs_err": bwd_err, "ms": bwd["random"], "ms_on_the_grid": bwd["on the grid"],
          "ms_bs8": bwd_times[SHAPES[0][0], TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": bwd["plain"], "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],

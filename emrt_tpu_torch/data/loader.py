@@ -158,17 +158,15 @@ class DataLoader:
         return len(self.dataset) // self.batch_size
 
 
-def val_batches(dataset, batch_size: int):
+def val_batches(dataset, batch_size: int, shard_index: int = 0, num_shards: int = 1):
     """Sequential val iteration: yields lists of (img, label) numpy pairs.
 
     Mirrors the reference's multi_val_fn collate (variable-shape batches as
-    python lists, multi_batch_collate.py:17-29).
+    python lists, multi_batch_collate.py:17-29). Shard ``shard_index`` of
+    ``num_shards`` (a rank of a data-parallel evaluation) gets the batches j
+    = shard_index (mod num_shards) of the one-shard sequence, whole, and
+    loads no other image: every image is evaluated once, in the batch it
+    would have had in one process.
     """
-    batch = []
-    for i in range(len(dataset)):
-        batch.append(dataset.get(i))
-        if len(batch) == batch_size:
-            yield batch
-            batch = []
-    if batch:
-        yield batch
+    for start in range(shard_index * batch_size, len(dataset), num_shards * batch_size):
+        yield [dataset.get(i) for i in range(start, min(start + batch_size, len(dataset)))]

@@ -8,6 +8,12 @@ ignore_index. A batch of one shape is predicted single-scale
 horizontal-flip TTA (``ms_inference``, VAL.SCALE_RATIOS); a batch of mixed
 shapes goes through ``_variable_shape_predict``. The int64 confusion matrix
 accumulates on the device.
+
+Under data parallelism (the JAX package's mesh path, ``evaluate.py:104-141``;
+reference val.py:164-180) rank r predicts the batches j = r (mod world),
+each as one process would build it (so the mixed-shape canvas and the
+padding are the same), and the confusion areas and image counts of all
+ranks are summed: every rank returns the one-process result.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 
 from ..data.loader import val_batches
 from ..ops.resize import batched_resize_bilinear_padded, resize_bilinear
+from ..parallel.mesh import all_reduce_sum, is_distributed, is_main, rank, world_size
 from ..utils.logger import logger
 from ..utils.metrics import MetricAccumulator, confusion_matrix
 from .slide import ms_inference, slide_inference, ss_inference
@@ -91,7 +98,8 @@ def evaluate(forward, dataset, config, device, multi_scales: bool = False,
     """forward: images [n, 3, h, w] on ``device`` -> main logits [n, C, h, w].
 
     multi_scales: TTA over VAL.SCALE_RATIOS with a horizontal flip.
-    progbar: show the reference's progress bar (val.py:190-191).
+    progbar: show the reference's progress bar (val.py:190-191), on rank 0
+    (its own batches).
     Returns the summary dict of ``MetricAccumulator`` plus ``val_time`` and
     ``images``."""
     num_classes = config.DATA.NUM_CLASSES
@@ -105,11 +113,14 @@ def evaluate(forward, dataset, config, device, multi_scales: bool = False,
 
     start = time.time()
     n_img = 0
+    shard, n_shards = rank(), world_size()
     bar = None
-    if progbar:
+    if progbar and is_main():
         from ..utils.progbar import Progbar
-        bar = Progbar(target=len(dataset), unit_name="img")
-    for batch in val_batches(dataset, batch_size):
+        own = sum(min(batch_size, len(dataset) - s)       # the images of rank 0's batches
+                  for s in range(0, len(dataset), n_shards * batch_size))
+        bar = Progbar(target=own, unit_name="img")
+    for batch in val_batches(dataset, batch_size, shard, n_shards):
         imgs = [b[0] for b in batch]
         labels = [np.asarray(b[1]) for b in batch]
         n_real = len(imgs)
@@ -141,12 +152,15 @@ def evaluate(forward, dataset, config, device, multi_scales: bool = False,
         if bar is not None:
             bar.update(n_img)
 
-    cm = cm_total.cpu().numpy()
-    acc.update_areas(np.diagonal(cm), cm.sum(axis=0), cm.sum(axis=1))
     if bar is not None and (bar.target is None or n_img < bar.target):
         # the loop's last update finalizes when n_img reaches the target;
         # only a short run is finalized here, so no line is written twice
         bar.update(n_img, finalize=True)
+    if is_distributed():
+        totals = all_reduce_sum(torch.cat([cm_total.flatten(), cm_total.new_tensor([n_img])]))
+        cm_total, n_img = totals[:-1].view_as(cm_total), int(totals[-1])
+    cm = cm_total.cpu().numpy()
+    acc.update_areas(np.diagonal(cm), cm.sum(axis=0), cm.sum(axis=1))
     val_time = time.time() - start
     result = acc.summarize()
     result["val_time"] = val_time

@@ -10,11 +10,29 @@ package's fixed-shape form). Logits are [n, C, H, W], labels [n, H, W]
 integers; every reduction runs in float32. The mean divides by max(count
 of kept pixels, 1), as the JAX package does, so a batch whose labels are
 all ``ignore_index`` gives 0 (``F.cross_entropy``'s mean gives NaN there).
+
+Under data parallelism (``parallel/mesh.py``) the JAX package's mean is over
+the global batch: the count of kept pixels (and OHEM's k-th probability) is
+that of every rank's rows together. Each rank then returns world x (its
+rows' sum) / (the global count), so that the mean of the ranks' losses is
+the global loss and DDP's average of the ranks' gradients is its gradient;
+an all-ignored rank contributes 0. With one process nothing changes.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import all_reduce_sum, is_distributed, rank, world_size
+
+
+def _mean(total, count):
+    """total / max(count, 1) of one process; under data parallelism this
+    rank's share of the global mean, times the world size."""
+    if not is_distributed():
+        return total / count.clamp(min=1)
+    count = all_reduce_sum(count.detach().float())
+    return total * world_size() / count.clamp(min=1)
 
 
 def masked_ce(logits, label, ignore_index: int = 255):
@@ -22,7 +40,7 @@ def masked_ce(logits, label, ignore_index: int = 255):
     valid = label != ignore_index
     nll = F.cross_entropy(logits.float(), torch.where(valid, label, 0).long(),
                           reduction="none")
-    return (nll * valid).sum() / valid.sum().clamp(min=1)
+    return _mean((nll * valid).sum(), valid.sum())
 
 
 class CrossEntropyLoss:
@@ -80,7 +98,9 @@ class OhemCrossEntropyLoss:
     a boolean filter: with k = min(min_kept, pixels), the k-th smallest
     true-class probability (ignored pixels count as 1) raises the threshold
     to max(kth, thresh); the mean CE over the non-ignored pixels at or
-    below it, divided by max(count, 1)."""
+    below it, divided by max(count, 1). Under data parallelism k and the
+    k-th probability are those of the global flat batch (every rank holds
+    as many pixels)."""
 
     def __init__(self, ignore_index: int = 255, thresh: float = 0.7,
                  min_kept: int = 10000):
@@ -96,10 +116,15 @@ class OhemCrossEntropyLoss:
         prob = F.softmax(logits, dim=1).gather(1, safe)[:, 0]
         nll = -F.log_softmax(logits, dim=1).gather(1, safe)[:, 0]
         true_prob = torch.where(valid, prob, 1.0).flatten()
-        k = min(self.min_kept, true_prob.numel())
-        kth = torch.kthvalue(true_prob, k).values
+        every = true_prob
+        if is_distributed():      # the ranks' rows in rank order, as one flat batch
+            every = true_prob.new_zeros((world_size(), true_prob.numel()))
+            every[rank()] = true_prob.detach()
+            every = all_reduce_sum(every).flatten()
+        k = min(self.min_kept, every.numel())
+        kth = torch.kthvalue(every, k).values
         keep = (true_prob <= kth.clamp(min=self.thresh)) & valid.flatten()
-        return (nll.flatten() * keep).sum() / keep.sum().clamp(min=1)
+        return _mean((nll.flatten() * keep).sum(), keep.sum())
 
 
 def get_loss_function(config):

@@ -204,6 +204,9 @@ class EMRT(nn.Module):
             raise NotImplementedError(f"backbone {backbone}")
         if self.variant != "hrnet":
             aux_channels = channels[1]
+        # the first tap's LayerNorm feeds no path (its map is not an encoder
+        # level): DistributedDataParallel must look for unused parameters
+        self.ddp_find_unused_parameters = self.variant == "taps"
         self.spatial_branch = SpatialBranch()
         self.psp_module = PyramidPoolingModule(self.psp_scales, 256)
         self.model = EncoderDecoder(

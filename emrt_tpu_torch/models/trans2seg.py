@@ -213,6 +213,12 @@ def _stride_out(n: int, output_stride: int) -> int:
 
 
 class Trans2Seg(nn.Module):
+    # a decoder block's norm4 / mlp3 refine an attention map that the next
+    # block replaces, and the last block's attention projection, mlp and
+    # mlp2 a query and features that nothing reads: DistributedDataParallel
+    # must look for unused parameters
+    ddp_find_unused_parameters = True
+
     def __init__(self, num_classes: int, backbone: str = "resnet50c", output_stride: int = 16,
                  img_size=(512, 512), embed_dim: int = 256, depth: int = 4,
                  num_heads: int = 8, mlp_ratio: float = 3.0, hid_dim: int = 64,

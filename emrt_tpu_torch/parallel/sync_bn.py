@@ -1,0 +1,107 @@
+"""BatchNorm over the global batch of all ranks (counterpart of flax
+``BatchNorm`` under a batch sharded on the JAX mesh's ``data`` axis, whose
+statistics GSPMD reduces over the global array; reference: the
+``nn.SyncBatchNorm`` layers of semantic_segmentation).
+
+flax takes the statistics in float32 in one pass, mean = E[x] and var =
+max(E[x^2] - E[x]^2, 0) (``use_fast_variance``), normalises with that biased
+variance and moves its running variance toward it. Here each rank sums x and
+x^2 per channel in float32 (bf16 inputs under autocast would cancel), one
+all-reduce adds the sums and counts of every rank, and the result is flax's
+formula over the global batch; the backward all-reduces the two per-channel
+sums it needs. ``torch.nn.SyncBatchNorm`` is not used: it moves the running
+variance toward the unbiased variance (fault F2, ``models/layers.py``).
+
+``convert_sync_batchnorm`` changes the class of every ``models/layers.py``
+BatchNorm in place, so parameters, buffers, state-dict keys and an optimizer
+built before it stay as they are. Outside training mode, or without a
+process group of more than one rank, the layers take exactly the path of
+``BatchNorm2d`` / ``BatchNorm1d``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from ..models.layers import BatchNorm1d, BatchNorm2d
+from .mesh import is_distributed
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """y = (x - mean) * rsqrt(var + eps) * weight + bias with the statistics
+    of the global batch, in float32 at least; returns y in x's dtype, and
+    the global (mean, biased var) for the running statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = [0] + list(range(2, x.dim()))
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(acc)
+        c = x.shape[1]
+        stats = torch.cat([xf.sum(dims), xf.square().sum(dims),
+                           xf.new_full((1,), x.numel() // c)])
+        dist.all_reduce(stats)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean.square()).clamp(min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean.view(view)) * invstd.view(view)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        y = xhat * weight.to(acc).view(view) + bias.to(acc).view(view)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, grad_y, _mean, _var):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        c = x.shape[1]
+        w = weight.to(mean.dtype)
+        dy = grad_y.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean.view(view)) * invstd.view(view)
+        grad_weight = (dy * xhat).sum(dims)
+        grad_bias = dy.sum(dims)
+        # the global sums of dxhat and dxhat * xhat: every rank's rows move
+        # the statistics that every rank normalised with
+        sums = torch.cat([grad_bias, grad_weight]) * w.repeat(2)
+        dist.all_reduce(sums)
+        grad_x = (dy * w.view(view) - (sums[:c] / n).view(view)
+                  - xhat * (sums[c:] / n).view(view)) * invstd.view(view)
+        return grad_x.to(x.dtype), grad_weight.to(weight.dtype), grad_bias.to(weight.dtype), None
+
+
+class _SyncMixin:
+    def forward(self, x):
+        if not (self.training and self.track_running_stats and is_distributed()):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+        return y
+
+
+class SyncBatchNorm2d(_SyncMixin, BatchNorm2d):
+    """``BatchNorm2d`` whose training statistics are those of the global
+    batch of every rank (n = the global N*H*W per channel)."""
+
+
+class SyncBatchNorm1d(_SyncMixin, BatchNorm1d):
+    """``BatchNorm1d`` over [n, c] vectors whose training statistics are
+    those of the global batch (n = the global N)."""
+
+
+def convert_sync_batchnorm(model: torch.nn.Module) -> torch.nn.Module:
+    """Make every ``BatchNorm2d`` / ``BatchNorm1d`` of ``model`` a
+    ``SyncBatchNorm2d`` / ``SyncBatchNorm1d`` in place; returns ``model``."""
+    for m in model.modules():
+        if type(m) is BatchNorm2d:
+            m.__class__ = SyncBatchNorm2d
+        elif type(m) is BatchNorm1d:
+            m.__class__ = SyncBatchNorm1d
+    return model

@@ -3,11 +3,12 @@ contract: semantic_segmentation/train.py).
 
 Usage: python3 -m emrt_tpu_torch.train --config <yaml> [--iters N] [--seed S]
        [--resume] [--device cuda|cpu] [KEY VALUE ...]
+       torchrun --nproc_per_node N -m emrt_tpu_torch.train --config <yaml> ...
 
-One device, eager PyTorch: the train step of ``train/step.py`` over the
-threaded loader, windowed loss / lr / batch-cost / ips / ETA logging every
-LOGGING_INFO_FREQ iterations, a checkpoint every SAVE_FREQ_CHECKPOINT
-(newest KEEP_CHECKPOINT_MAX kept), and sliding-window ``evaluate`` every
+Eager PyTorch: the train step of ``train/step.py`` over the threaded loader,
+windowed loss / lr / batch-cost / ips / ETA logging every LOGGING_INFO_FREQ
+iterations, a checkpoint every SAVE_FREQ_CHECKPOINT (newest
+KEEP_CHECKPOINT_MAX kept), and sliding-window ``evaluate`` every
 VALIDATE_FREQ with the best mIoU's model saved; all three also at the last
 iteration. Each step seeds torch from (SEED, step), so dropout draws the
 same masks whether or not the run was resumed; ``--resume`` continues from
@@ -15,7 +16,16 @@ the latest checkpoint in SAVE_DIR, with the loader skipping the batches
 already consumed. MODEL.PRETRAINED takes a ``.pt`` file of this package or a
 reference ``.pdparams`` (a whole model, or a prefix-less ImageNet ResNet for
 the backbone). The model's FLOPs and parameters are reported at the end.
-Multi-GPU waits (ROADMAP.md queue 1, M12).
+
+Under ``torchrun`` (WORLD_SIZE > 1) it trains data-parallel, as the JAX
+package does over the mesh's ``data`` axis (``train.py:55-152``): one
+process a GPU (``--device cuda`` is ``cuda:LOCAL_RANK``), DATA.BATCH_SIZE
+rows a rank from the loader's shard of the rank, BatchNorm over the global
+batch (``parallel.convert_sync_batchnorm``), DDP's averaged gradients, the
+losses' global mean; the seed of a step folds in the rank. Evaluation is
+sharded over the ranks, rank 0 logs, writes the checkpoints and counts the
+FLOPs. PARALLEL.MODEL and PARALLEL.SPATIAL > 1 are refused
+(``parallel.check_parallel``).
 """
 from __future__ import annotations
 
@@ -24,12 +34,16 @@ import random
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from ..config import get_config, update_config
 from ..data import DataLoader, get_dataset, get_transforms
 from ..inference import build_val_transforms, evaluate
 from ..losses import get_loss_function
 from ..models import get_model
+from ..parallel import (check_parallel, convert_sync_batchnorm, distributed, is_main, rank,
+                        world_size)
+from ..parallel.mesh import all_reduce_sum, build_kernels_once
 from ..solver import get_optimizer, get_scheduler
 from ..utils import TimeAverager, Timer, calculate_eta, logger
 from ..utils.checkpoint import CheckpointManager, load_weights_auto
@@ -46,16 +60,18 @@ def parse_args(argv=None):
     parser.add_argument("--iters", type=int, default=None,
                         help="override TRAIN.ITERS (smoke runs)")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device (default cuda)")
+                        help="torch device (default cuda; cuda:LOCAL_RANK under torchrun)")
     parser.add_argument("opts", nargs="*", help="KEY VALUE config overrides")
     return parser.parse_args(argv)
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, rank: int = 0, world: int = 1) -> int:
     """torch's seed for train step ``step``: the counterpart of the JAX step's
     ``fold_in(rng, step)``, so the dropout masks depend on (SEED, step)
-    alone."""
-    return int(np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0])
+    alone. The JAX step draws one stream over the global batch; under data
+    parallelism each rank's rows draw their own, from (SEED, step, rank)."""
+    key = (seed, step) if world == 1 else (seed, step, rank)
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
 
 
 def load_pretrained(model, path: str):
@@ -71,6 +87,15 @@ def load_pretrained(model, path: str):
                 f"({report['matched']} tensors)")
 
 
+def make_train_loader(config, dataset, device) -> DataLoader:
+    """DATA.BATCH_SIZE samples a step from this rank's shard of the sampler:
+    the JAX loader's per-process shard (``emrt_tpu/data/loader.py:21-51``),
+    so the global batch is the ranks' batches in rank order."""
+    return DataLoader(dataset, config.DATA.BATCH_SIZE, iterations=config.TRAIN.ITERS,
+                      seed=config.SEED, num_workers=config.DATA.NUM_WORKERS,
+                      device=device, shard_index=rank(), num_shards=world_size())
+
+
 def main(argv=None) -> dict:
     """Train; returns a summary: the first and last iteration of this run,
     the steps it took, the model forwards of its evaluations and of its
@@ -82,37 +107,52 @@ def main(argv=None) -> dict:
         config.SEED = args.seed
     if args.iters is not None:
         config.TRAIN.ITERS = args.iters
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (use --device cpu)")
+    with distributed(args.device) as device:
+        return _train(args, config, device)
 
+
+def _train(args, config, device) -> dict:
+    world, this_rank = world_size(), rank()
+    check_parallel(config, world)
     random.seed(config.SEED)
     np.random.seed(config.SEED)
     torch.manual_seed(config.SEED)
     model = get_model(config, device=device)
     if config.MODEL.PRETRAINED:
         load_pretrained(model, config.MODEL.PRETRAINED)
+    if world > 1:
+        convert_sync_batchnorm(model)
+        build_kernels_once(model, device)
     schedule = get_scheduler(config)
     optimizer = get_optimizer(config, model, schedule)
     loss_fn = get_loss_function(config)
     n_params = sum(p.numel() for p in model.parameters())
-    logger.info(f"device: {device} model params: {n_params / 1e6:.2f}M")
+    logger.info(f"device: {device} ranks: {world} model params: {n_params / 1e6:.2f}M")
 
     train_dataset = get_dataset(config, get_transforms(config), mode="train")
     val_dataset = get_dataset(config, build_val_transforms(config), mode="val")
     batch_size = config.DATA.BATCH_SIZE
-    loader = DataLoader(train_dataset, batch_size, iterations=config.TRAIN.ITERS,
-                        seed=config.SEED, num_workers=config.DATA.NUM_WORKERS,
-                        device=device)
+    loader = make_train_loader(config, train_dataset, device)
     logger.info(f"train samples: {len(train_dataset)} val samples: "
-                f"{len(val_dataset)} batch: {batch_size}")
+                f"{len(val_dataset)} batch: {batch_size} a rank, {batch_size * world} "
+                f"in all")
 
     ckpt = CheckpointManager(config.SAVE_DIR, config.KEEP_CHECKPOINT_MAX)
     start_iter = 0
     if args.resume:
         start_iter = ckpt.restore(model, optimizer)
         loader.start_iter = start_iter
-    train_step = make_train_step(model, loss_fn, optimizer)
+    trained = model
+    if world > 1:
+        # BatchNorm statistics are equal on every rank (SyncBatchNorm):
+        # nothing to broadcast
+        trained = DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None,
+            broadcast_buffers=False,
+            find_unused_parameters=getattr(model, "ddp_find_unused_parameters", False))
+    train_step = make_train_step(trained, loss_fn, optimizer)
     summary = {"start_iter": start_iter, "last_iter": start_iter, "steps": 0,
                "eval_forwards": 0, "losses": [], "mious": []}
 
@@ -124,20 +164,21 @@ def main(argv=None) -> dict:
     reader_cost = TimeAverager()
     timer = Timer()
     it = start_iter
-    window_losses = []   # device scalars; averaged at log time
+    window_losses = []   # this rank's device scalars; averaged at log time
     for batch in loader:
         reader_cost.record(timer.restart())
         it += 1
-        torch.manual_seed(step_seed(config.SEED, it))
+        torch.manual_seed(step_seed(config.SEED, it, this_rank, world))
         window_losses.append(train_step(batch))
         summary["steps"] += 1
         log_now = it % config.LOGGING_INFO_FREQ == 0 or it == config.TRAIN.ITERS
         if log_now and device.type == "cuda":
             torch.cuda.synchronize(device)
-        batch_cost.record(timer.restart(), num_samples=batch_size)
+        batch_cost.record(timer.restart(), num_samples=batch_size * world)
 
         if log_now:
-            avg_loss = torch.stack(window_losses).mean().item()
+            # each rank's loss is world x its share of the global batch's
+            avg_loss = (all_reduce_sum(torch.stack(window_losses).mean()) / world).item()
             window_losses = []
             summary["losses"].append(avg_loss)
             eta = calculate_eta(config.TRAIN.ITERS - it, batch_cost.get_average())
@@ -160,8 +201,8 @@ def main(argv=None) -> dict:
             ckpt.save_best(model, result["miou"])
         timer.restart()
     summary["last_iter"] = it
-    # final FLOPs/params report (reference train.py:239-260)
-    cost = forward_cost(model, (1, 3, *config.DATA.CROP_SIZE), device)
-    logger.info(f"model cost: {format_cost(cost)}")
+    if is_main():     # final FLOPs/params report (reference train.py:239-260)
+        cost = forward_cost(model, (1, 3, *config.DATA.CROP_SIZE), device)
+        logger.info(f"model cost: {format_cost(cost)}")
     logger.info(f"training done at iter {it}; best mIoU {ckpt.best_miou:.4f}")
     return summary

@@ -9,7 +9,10 @@ step count) and the step, and only the newest ``max_to_keep`` stay.
 ``SAVE_DIR/best_model.pt`` holds the model of the best mIoU so far, which
 ``best_model.json`` records, so that a resumed run does not let its first
 evaluation overwrite a better one from before the restart. Every file is
-written to a temporary name first and then renamed into place.
+written to a temporary name first and then renamed into place. Under data
+parallelism rank 0 writes (the model without DDP's wrapper, so its keys
+have no ``module.`` prefix and one process reads them) while the other
+ranks wait for it, and every rank restores.
 ``load_weights_auto`` reads either file, or a reference ``.pdparams``, into
 a model: ``val``, ``predict`` and MODEL.PRETRAINED load through it. A ViT
 position table of another token count (weights trained at another crop) is
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import barrier, is_main
 from .logger import logger
 
 _CKPT = re.compile(r"iter_(\d+)\.pt$")
@@ -33,7 +37,11 @@ _CKPT = re.compile(r"iter_(\d+)\.pt$")
 
 def _save(obj, path: str):
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(obj, tmp)
+    if path.endswith(".json"):
+        with open(tmp, "w") as f:
+            json.dump(obj, f)
+    else:
+        torch.save(obj, tmp)
     os.replace(tmp, path)
 
 
@@ -41,7 +49,9 @@ class CheckpointManager:
     def __init__(self, save_dir: str, max_to_keep: int = 1):
         self.save_dir = os.path.abspath(save_dir)
         self.ckpt_dir = os.path.join(self.save_dir, "checkpoints")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        if is_main():
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+        barrier()
         self.max_to_keep = max(1, int(max_to_keep))
         self._best_meta = os.path.join(self.save_dir, "best_model.json")
         self.best_miou = -1.0
@@ -62,19 +72,24 @@ class CheckpointManager:
         return os.path.join(self.ckpt_dir, f"iter_{step}.pt")
 
     def save(self, step: int, model, optimizer) -> None:
-        _save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-               "step": step}, self.path(step))
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+        if is_main():
+            _save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                   "step": step}, self.path(step))
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        barrier()
         logger.info(f"checkpoint saved at iter {step}")
 
     def save_best(self, model, miou: float) -> bool:
+        """Save ``model`` as the best one if ``miou`` beats the best so far
+        (every rank evaluates to the same mIoU, and so decides alike)."""
         if miou <= self.best_miou:
             return False
         self.best_miou = miou
-        _save(model.state_dict(), os.path.join(self.save_dir, "best_model.pt"))
-        with open(self._best_meta, "w") as f:
-            json.dump({"best_miou": miou}, f)
+        if is_main():
+            _save(model.state_dict(), os.path.join(self.save_dir, "best_model.pt"))
+            _save({"best_miou": miou}, self._best_meta)
+        barrier()
         logger.info(f"best model saved (mIoU {miou:.4f})")
         return True
 

@@ -3,12 +3,16 @@ reference contract: semantic_segmentation/val.py).
 
 Usage: python3 -m emrt_tpu_torch.val --config <yaml> [--model_path <.pt | .pdparams>]
        [--multi_scales] [--device cuda] [KEY VALUE ...]
+       torchrun --nproc_per_node N -m emrt_tpu_torch.val --config <yaml> ...
 
 Without ``--model_path`` the weights come from the seeded init (config
 SEED); with it, from a ``best_model.pt`` or ``iter_<n>.pt`` of the train CLI
 or a reference ``.pdparams``, which must leave no tensor at init.
 ``--multi_scales`` or VAL.MULTI_SCALES_VAL run multi-scale + flip TTA. Prints
-the per-class table and the model's FLOPs and parameters.
+the per-class table and the model's FLOPs and parameters. Under ``torchrun``
+the evaluation is sharded over the ranks (the repo's ``val.py:54-62``; one
+GPU a rank, ``cuda:LOCAL_RANK``), every rank gets the whole result and rank
+0 logs it and counts the FLOPs.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from .config import get_config, update_config
 from .data import get_dataset
 from .inference import build_val_transforms, evaluate
 from .models import get_model
+from .parallel import check_parallel, distributed, is_main, world_size
+from .parallel.mesh import build_kernels_once
 from .utils import logger
 from .utils.checkpoint import load_weights_auto
 from .utils.flops import format_cost, forward_cost
@@ -33,20 +39,26 @@ def parse_args(argv=None):
                              "reference .pdparams state dict")
     parser.add_argument("--multi_scales", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device (default cuda)")
+                        help="torch device (default cuda; cuda:LOCAL_RANK under torchrun)")
     parser.add_argument("opts", nargs="*")
     return parser.parse_args(argv)
 
 
 def main(argv=None):
     """Evaluate; returns ``evaluate``'s summary plus ``forwards`` (the model
-    forwards of the evaluation) and ``cost`` (``forward_cost``)."""
+    forwards of the evaluation, this rank's) and ``cost`` (``forward_cost``;
+    None but on rank 0)."""
     args = parse_args(argv)
     config = update_config(get_config(), args)
-    torch.manual_seed(config.SEED)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (use --device cpu)")
+    with distributed(args.device) as device:
+        return _validate(args, config, device)
+
+
+def _validate(args, config, device):
+    check_parallel(config, world_size())
+    torch.manual_seed(config.SEED)
     model = get_model(config, device=device).eval()
     if args.model_path:
         report = load_weights_auto(model, args.model_path)
@@ -56,7 +68,8 @@ def main(argv=None):
         logger.info(f"loaded {report['matched']} tensors from {args.model_path} "
                     f"({len(report['unused'])} unused)")
     n_params = sum(p.numel() for p in model.parameters())
-    logger.info(f"model params: {n_params / 1e6:.2f}M")
+    logger.info(f"device: {device} ranks: {world_size()} model params: {n_params / 1e6:.2f}M")
+    build_kernels_once(model, device)
 
     forwards = 0
 
@@ -79,12 +92,13 @@ def main(argv=None):
                     f"{result['class_f1'][c]:>8.4f}")
     logger.info(f"final mIoU: {result['miou']:.4f} Acc: {result['acc']:.4f} "
                 f"Kappa: {result['kappa']:.4f} mF1: {result['mf1']:.4f}")
-    # FLOPs / params (reference val.py:211-230)
-    size = config.VAL.IMAGE_BASE_SIZE or config.DATA.CROP_SIZE[0]
-    if isinstance(size, int):
-        size = (size, size)
-    cost = forward_cost(model, (1, 3, *size), device)
-    logger.info(f"model cost: {format_cost(cost)}")
+    cost = None
+    if is_main():     # FLOPs / params (reference val.py:211-230)
+        size = config.VAL.IMAGE_BASE_SIZE or config.DATA.CROP_SIZE[0]
+        if isinstance(size, int):
+            size = (size, size)
+        cost = forward_cost(model, (1, 3, *size), device)
+        logger.info(f"model cost: {format_cost(cost)}")
     result["forwards"], result["cost"] = forwards, cost
     return result
 
