@@ -104,9 +104,33 @@ leg was not run. (e) The CLIs as a user launches them: ``torchrun
 --standalone --nproc_per_node 2 -m emrt_tpu_torch.train --device cuda``
 for two iterations, then ``-m emrt_tpu_torch.val`` on its best_model.pt,
 whose mIoU must be the run's within 1e-3.
+Phase 8 drives tensor parallelism (``emrt_tpu_torch.parallel.tensor``,
+PARALLEL.MODEL) on the flagship at full width and depth with seeded
+weights, each rank a process of its own on the one card over gloo. (a) One
+float32 dp1 x tp2 step of phase 7's 8 rows (dropout 0) against one
+process's: the loss within DP_LOSS_RTOL, the gradients gathered over the
+model group within TRAIN_BN_GRAD_RTOL (L2), the running statistics within
+1e-4 x max, the gradient norm before the clip within TP_NORM_RTOL and the
+gathered gradient's norm after it GRAD_CLIP; then a step with dropout 0.1
+after which the replicated parameters are bitwise equal on both ranks; (b)
+6 K1 and 6 backward launches a step on each rank, at 4 heads; (c)
+``train.main --device cuda`` on four ranks as dp2 x tp2, bf16, with a save,
+a sharded eval and ``--resume``: finite losses equal on all ranks, files
+written by rank 0 only and holding the one-process model's tensors, the
+launch counts, and one-process ``val.main`` on the run's best_model.pt
+within 1e-3 of its mIoU; (d) each rank's bf16 dp1 x tp2 step time and peak
+memory (a smoke figure: the ranks share a card). Where there are two cards
+(a), (b) and (d) run again over NCCL, a card a rank, and (c) where there are
+four; else the phase prints that the NCCL leg was not run. (e) ``torchrun
+--standalone --nproc_per_node 2 -m emrt_tpu_torch.train --device cuda ...
+PARALLEL.MODEL 2`` for two iterations. Phases 1 and 3a also hold the kernels
+at a TP rank's 4 and 2 heads at the flagship's encoder and decoder calls
+(TP_SHAPES, bs 32 and 8), and ``time_fwd`` / ``time_bwd`` time them at bs 32.
 
 Any failed check raises, and the script then exits non-zero without the
-final line. It prints its own time, then a JSON object describing each
+final line. ``python3 chip_smoke.py --tp-step`` runs phase 0 and phase 8's
+dp1 x tp2 step alone, ``--train-step`` phase 0 and phase 3c's timing of one
+process's bf16 bs-8 train step alone; neither prints the final lines. It prints its own time, then a JSON object describing each
 kernel on the second-to-last line; the last line is {"ok": true, "device":
 {...}}. Nothing here imports JAX.
 """
@@ -148,6 +172,11 @@ SHAPES = (("encoder 256^2", LEVELS_256, 1344),
           ("decoder 384^2", LEVELS_384, 110),
           ("encoder 448^2", LEVELS_448, 4116),
           ("decoder 448^2", LEVELS_448, 110))
+# tensor parallelism (phase 8): a rank of a model group of T runs the
+# flagship's calls at 8 / T heads, T = 2 and 4
+TP_HEADS = (4, 2)
+TP_SHAPES = tuple((f"{name} nh {h}", levels, len_q, h) for h in TP_HEADS
+                  for name, levels, len_q in SHAPES[:2])
 N_IMAGES, IMAGE_SIZE, WINDOW_BATCH = 8, 1024, 32
 # bf16 model logits through K1 against the plain core: K1's f32 sums differ
 # from the plain version's in order only, so some deformable outputs round
@@ -260,17 +289,17 @@ def phase0():
     return card
 
 
-def _inputs(levels, len_q, dtype, loc_set, gen, bs=BS):
+def _inputs(levels, len_q, dtype, loc_set, gen, bs=BS, heads=HEADS):
     import torch
     from emrt_tpu_torch.models.deformable_transformer import _offset_bias_init
     from emrt_tpu_torch.models.position_encoding import encoder_reference_points
     dev = "cuda"
     len_v = sum(h * w for h, w in levels)
     n_lv = len(levels)
-    value = torch.randn((bs, len_v, HEADS, HEAD_DIM), generator=gen, device=dev).to(dtype)
-    attn = torch.randn((bs, len_q, HEADS, n_lv * POINTS), generator=gen, device=dev)
-    attn = attn.softmax(-1).view(bs, len_q, HEADS, n_lv, POINTS).to(dtype)
-    shape = (bs, len_q, HEADS, n_lv, POINTS, 2)
+    value = torch.randn((bs, len_v, heads, HEAD_DIM), generator=gen, device=dev).to(dtype)
+    attn = torch.randn((bs, len_q, heads, n_lv * POINTS), generator=gen, device=dev)
+    attn = attn.softmax(-1).view(bs, len_q, heads, n_lv, POINTS).to(dtype)
+    shape = (bs, len_q, heads, n_lv, POINTS, 2)
     if loc_set == "random":
         loc = torch.rand(shape, generator=gen, device=dev) * 1.2 - 0.1
     elif loc_set == "out of bounds":
@@ -279,10 +308,10 @@ def _inputs(levels, len_q, dtype, loc_set, gen, bs=BS):
         loc = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.5, low, high)
     else:   # on the grid: encoder reference points + rotated-grid init offsets
         ref = encoder_reference_points(levels, device=dev)[:len_q]        # [Lq, L, 2]
-        off = torch.from_numpy(_offset_bias_init(HEADS, n_lv, POINTS)).to(dev)
+        off = torch.from_numpy(_offset_bias_init(heads, n_lv, POINTS)).to(dev)
         norm = torch.tensor([[w, h] for h, w in levels], dtype=torch.float32, device=dev)
         loc = (ref[:, None, :, None, :]
-               + off.view(HEADS, n_lv, POINTS, 2) / norm[None, :, None, :])
+               + off.view(heads, n_lv, POINTS, 2) / norm[None, :, None, :])
         loc = loc.expand(shape).contiguous()
     return value, loc, attn
 
@@ -329,23 +358,26 @@ def _check_fwd(tag, value, levels, loc, attn, loc_set, plan=None):
 
 def phase1():
     """K1 against its plain version at every SHAPES call (bs 32, and bs 8
-    where the plan splits), and the wrappers' refusals."""
+    where the plan splits), at the TP ranks' head counts (TP_SHAPES, bs 32
+    and 8), and the wrappers' refusals."""
     import torch
     from emrt_tpu_torch.ops import deformable_cuda
     from emrt_tpu_torch.ops.deformable import deformable_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, levels, len_q, bs in [(*shape, BS) for shape in SHAPES] + [
-            ("encoder 256^2 bs 8", LEVELS_256, 1344, TRAIN_BS),
-            ("decoder 256^2 bs 8", LEVELS_256, 110, TRAIN_BS)]:
+    for name, levels, len_q, bs, heads in [(*shape, BS, HEADS) for shape in SHAPES] + [
+            ("encoder 256^2 bs 8", LEVELS_256, 1344, TRAIN_BS, HEADS),
+            ("decoder 256^2 bs 8", LEVELS_256, 110, TRAIN_BS, HEADS)] + [
+            (name if bs == BS else f"{name} bs 8", levels, len_q, bs, heads)
+            for bs in (BS, TRAIN_BS) for name, levels, len_q, heads in TP_SHAPES]:
         for dtype in (torch.float32, torch.bfloat16):
-            plan = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, HEADS, len_q, n_sms)
+            plan = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, heads, len_q, n_sms)
             print(f"phase 1: {name} bs {bs} {str(dtype)[6:]}: plan {plan}")
             plans = [None] if bs == BS else [None, deformable_cuda.fwd_plan(
-                levels, HEAD_DIM, dtype, bs, HEADS, len_q, n_sms, stage=not plan.staged)]
+                levels, HEAD_DIM, dtype, bs, heads, len_q, n_sms, stage=not plan.staged)]
             for loc_set in ("random", "out of bounds", "on the grid"):
-                value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs)
+                value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs, heads)
                 for other in plans:   # at bs 8 also with the other staging
                     tag = name if other is None else f"{name}, {_staging(other)}"
                     max_err = max(max_err, _check_fwd(tag, value, levels, loc, attn, loc_set,
@@ -403,7 +435,8 @@ def time_fwd():
     (b, h) where the plan splits, two where it does not), and the other staging (none staged where
     the plan stages levels, the levels that fit where it stages none). The
     plan's choices are judged by device time: the decoder-sized calls are
-    mostly host time, which the plan does not change.
+    mostly host time, which the plan does not change. The TP ranks' calls
+    (TP_SHAPES) are timed at bs 32.
     Returns {(name, bs, dtype): {"random": ms, ...}}."""
     import torch
     from emrt_tpu_torch.ops import deformable_cuda
@@ -412,37 +445,37 @@ def time_fwd():
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     ms = functools.partial(cuda_ms, reps=10, warmup=2)
     times = {}
-    for bs in (BS, TRAIN_BS):
-        for name, levels, len_q in SHAPES:
-            for dtype in (torch.float32, torch.bfloat16):
-                plan = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, HEADS, len_q, n_sms)
-                plans = {"plan": plan}
-                if plan.splits > 1 or bs * HEADS < n_sms * plan.blocks_per_sm:
-                    split = 1 if plan.splits > 1 else 2
-                    plans[f"splits {split}"] = deformable_cuda.fwd_plan(
-                        levels, HEAD_DIM, dtype, bs, HEADS, len_q, n_sms, splits=split)
-                staging = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, HEADS, len_q,
-                                                   n_sms, stage=not plan.staged)
-                plans[_staging(staging)] = staging
-                t = {}
-                for loc_set in ("on the grid", "random"):
-                    value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs)
-                    args = (value, levels, loc, attn)
-                    mine = functools.partial(deformable_cuda.ms_deform_attn_fwd, *args)
-                    t[loc_set] = ms(mine)
-                    for key, p in plans.items():
-                        t[f"{loc_set}, {key} device"] = fwd_device_us(
-                            functools.partial(mine, plan=p)) / 1e3
-                t["plain"] = ms(lambda: deformable_attention_core(*args))
-                line = ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
-                # one FMA per channel and valid corner
-                t["bound"] = bound([value, loc, attn, mine()],
-                                   2 * HEAD_DIM * _valid_corners(levels, loc))
-                times[name, bs, dtype] = t
-                print(f"time_fwd: {name:16s} {str(dtype)[6:]:8s} bs {bs:2d} K1 (median of 10, "
-                      f"CUDA events; device: torch.profiler, 20 calls): {line}; bound "
-                      f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), "
-                      f"{100 * t['bound'][0] / t['random']:.1f}% of it on random locations")
+    cases = [(bs, *shape, HEADS) for bs in (BS, TRAIN_BS) for shape in SHAPES]
+    for bs, name, levels, len_q, heads in cases + [(BS, *shape) for shape in TP_SHAPES]:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, heads, len_q, n_sms)
+            plans = {"plan": plan}
+            if plan.splits > 1 or bs * heads < n_sms * plan.blocks_per_sm:
+                split = 1 if plan.splits > 1 else 2
+                plans[f"splits {split}"] = deformable_cuda.fwd_plan(
+                    levels, HEAD_DIM, dtype, bs, heads, len_q, n_sms, splits=split)
+            staging = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, heads, len_q,
+                                               n_sms, stage=not plan.staged)
+            plans[_staging(staging)] = staging
+            t = {}
+            for loc_set in ("on the grid", "random"):
+                value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs, heads)
+                args = (value, levels, loc, attn)
+                mine = functools.partial(deformable_cuda.ms_deform_attn_fwd, *args)
+                t[loc_set] = ms(mine)
+                for key, p in plans.items():
+                    t[f"{loc_set}, {key} device"] = fwd_device_us(
+                        functools.partial(mine, plan=p)) / 1e3
+            t["plain"] = ms(lambda: deformable_attention_core(*args))
+            line = ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+            # one FMA per channel and valid corner
+            t["bound"] = bound([value, loc, attn, mine()],
+                               2 * HEAD_DIM * _valid_corners(levels, loc))
+            times[name, bs, dtype] = t
+            print(f"time_fwd: {name:16s} {str(dtype)[6:]:8s} bs {bs:2d} K1 (median of 10, "
+                  f"CUDA events; device: torch.profiler, 20 calls): {line}; bound "
+                  f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), "
+                  f"{100 * t['bound'][0] / t['random']:.1f}% of it on random locations")
     return times
 
 
@@ -581,15 +614,18 @@ def phase3a():
     gen = torch.Generator(device="cuda").manual_seed(1)
     max_err = 0.0
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    # bs 8 (the yamls' batch): 64 (b, h) on 132 SMs, so the plan splits them
-    for name, levels, len_q, bs in [(*shape, BS) for shape in SHAPES] + [
-            ("encoder 256^2 bs 8", LEVELS_256, 1344, TRAIN_BS)]:
-        plan = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, HEADS, len_q, n_sms)
+    # bs 8 (the yamls' batch): 64 (b, h) on 132 SMs, so the plan splits them;
+    # a TP rank's 4 or 2 heads split them more (bs 8 at 2 heads: 8 ways)
+    for name, levels, len_q, bs, heads in [(*shape, BS, HEADS) for shape in SHAPES] + [
+            ("encoder 256^2 bs 8", LEVELS_256, 1344, TRAIN_BS, HEADS)] + [
+            (name if bs == BS else f"{name} bs 8", levels, len_q, bs, heads)
+            for bs in (BS, TRAIN_BS) for name, levels, len_q, heads in TP_SHAPES]:
+        plan = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, heads, len_q, n_sms)
         print(f"phase 3a: {name} bs {bs}: plan {plan}")
         for dtype in (torch.float32, torch.bfloat16):
             for loc_set in ("random", "out of bounds", "on the grid"):
-                value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs)
-                grad_out = torch.randn((bs, len_q, HEADS * HEAD_DIM), generator=gen,
+                value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs, heads)
+                grad_out = torch.randn((bs, len_q, heads * HEAD_DIM), generator=gen,
                                        device="cuda").to(dtype)
                 max_err = max(max_err, _check_bwd(name, value, levels, loc, attn, grad_out,
                                                   loc_set))
@@ -606,6 +642,7 @@ def time_bwd(plain=True, other_split=True):
     two timed in turns after one timing thrown away, each the mean of its
     two medians).
     Another commit's package that lacks the plan is timed with both off.
+    The TP ranks' calls (TP_SHAPES) are timed at bs 32.
     Returns {(name, bs, dtype): {"random": ms, ...}}."""
     import torch
     from emrt_tpu_torch.ops import deformable_cuda
@@ -614,47 +651,47 @@ def time_bwd(plain=True, other_split=True):
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     ms = functools.partial(cuda_ms, reps=10, warmup=2)
     times = {}
-    for bs in (BS, TRAIN_BS):
-        for name, levels, len_q in SHAPES:
-            other = None
-            if other_split and bs * HEADS < n_sms:
-                plan = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, HEADS, len_q, n_sms)
-                other = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, HEADS, len_q, n_sms,
-                                                 splits=1 if plan.splits > 1 else 2)
-            for dtype in (torch.float32, torch.bfloat16):
-                t = {}
-                for loc_set in ("on the grid", "random"):
-                    value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs)
-                    grad_out = torch.randn((bs, len_q, HEADS * HEAD_DIM), generator=gen,
-                                           device="cuda").to(dtype)
-                    args = (value, levels, loc, attn, grad_out)
-                    mine = functools.partial(deformable_cuda.ms_deform_attn_bwd, *args)
-                    if other is None:
-                        t[loc_set] = ms(mine)
-                    else:   # in turns, after a timing thrown away: at the decoder calls
-                        # the first timing after new inputs read up to 25% slow
-                        theirs = functools.partial(mine, plan=other)
-                        ms(mine)
-                        a, b, c, d = ms(mine), ms(theirs), ms(theirs), ms(mine)
-                        t[loc_set], t[f"{loc_set}, splits {other.splits}"] = (a + d) / 2, (b + c) / 2
-                line = (f"random {t['random']:.4f} ms, on the grid {t['on the grid']:.4f} ms"
-                        + "".join(f", {k} {v:.4f} ms" for k, v in t.items() if "splits" in k))
-                if plain:
-                    ins = [x.clone().requires_grad_() for x in (value, loc, attn)]
-                    out = deformable_attention_core(ins[0], levels, ins[1], ins[2])
-                    t["plain"] = ms(lambda: torch.autograd.grad(out, ins, grad_out,
-                                                                retain_graph=True))
-                    del out, ins
-                    line += f", plain {t['plain']:.4f} ms"
-                # per channel and valid corner: an FMA into the dot product with
-                # grad_out, and a product and an add into the value gradient
-                t["bound"] = bound([*args[:1], *args[2:], *deformable_cuda.ms_deform_attn_bwd(
-                    *args)], 4 * HEAD_DIM * _valid_corners(levels, loc))
-                times[name, bs, dtype] = t
-                print(f"phase 3a: {name:16s} {str(dtype)[6:]:8s} bs {bs:2d} backward (median "
-                      f"of 10, CUDA events): {line}; bound {t['bound'][0]:.4f} ms "
-                      f"({t['bound'][1]}), {100 * t['bound'][0] / t['random']:.1f}% of it "
-                      f"on random locations")
+    cases = [(bs, *shape, HEADS) for bs in (BS, TRAIN_BS) for shape in SHAPES]
+    for bs, name, levels, len_q, heads in cases + [(BS, *shape) for shape in TP_SHAPES]:
+        other = None
+        if other_split and bs * heads < n_sms:
+            plan = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, heads, len_q, n_sms)
+            other = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, heads, len_q, n_sms,
+                                             splits=1 if plan.splits > 1 else 2)
+        for dtype in (torch.float32, torch.bfloat16):
+            t = {}
+            for loc_set in ("on the grid", "random"):
+                value, loc, attn = _inputs(levels, len_q, dtype, loc_set, gen, bs, heads)
+                grad_out = torch.randn((bs, len_q, heads * HEAD_DIM), generator=gen,
+                                       device="cuda").to(dtype)
+                args = (value, levels, loc, attn, grad_out)
+                mine = functools.partial(deformable_cuda.ms_deform_attn_bwd, *args)
+                if other is None:
+                    t[loc_set] = ms(mine)
+                else:   # in turns, after a timing thrown away: at the decoder calls
+                    # the first timing after new inputs read up to 25% slow
+                    theirs = functools.partial(mine, plan=other)
+                    ms(mine)
+                    a, b, c, d = ms(mine), ms(theirs), ms(theirs), ms(mine)
+                    t[loc_set], t[f"{loc_set}, splits {other.splits}"] = (a + d) / 2, (b + c) / 2
+            line = (f"random {t['random']:.4f} ms, on the grid {t['on the grid']:.4f} ms"
+                    + "".join(f", {k} {v:.4f} ms" for k, v in t.items() if "splits" in k))
+            if plain:
+                ins = [x.clone().requires_grad_() for x in (value, loc, attn)]
+                out = deformable_attention_core(ins[0], levels, ins[1], ins[2])
+                t["plain"] = ms(lambda: torch.autograd.grad(out, ins, grad_out,
+                                                            retain_graph=True))
+                del out, ins
+                line += f", plain {t['plain']:.4f} ms"
+            # per channel and valid corner: an FMA into the dot product with
+            # grad_out, and a product and an add into the value gradient
+            t["bound"] = bound([*args[:1], *args[2:], *deformable_cuda.ms_deform_attn_bwd(
+                *args)], 4 * HEAD_DIM * _valid_corners(levels, loc))
+            times[name, bs, dtype] = t
+            print(f"phase 3a: {name:16s} {str(dtype)[6:]:8s} bs {bs:2d} backward (median "
+                  f"of 10, CUDA events): {line}; bound {t['bound'][0]:.4f} ms "
+                  f"({t['bound'][1]}), {100 * t['bound'][0] / t['random']:.1f}% of it "
+                  f"on random locations")
     return times
 
 
@@ -780,7 +817,21 @@ def phase3c(card, save_dir):
     print(f"phase 3c: --resume continued at iter {resumed['start_iter']} to "
           f"{resumed['last_iter']}, losses {[round(x, 4) for x in resumed['losses']]}")
 
-    # train steps on device batches: host data left out
+    rows = time_train_steps(card, (TRAIN_BS, BS), reps=10)
+    return launches, rows
+
+
+def time_train_steps(card, sizes, reps, what="phase 3c"):
+    """One process's bf16 train step of the flagship (seeded weights,
+    dropout as the yaml sets it) on device batches, host data left out: for
+    each batch size of ``sizes`` the median of ``reps`` steps (CUDA events)
+    and the peak memory; then the profile of a step at the last size.
+    Returns {bs: (ms, tiles/s, peak GiB)}."""
+    import torch
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
     cfg = _train_config()
     torch.manual_seed(0)
     model = get_model(cfg, device="cuda")
@@ -789,20 +840,22 @@ def phase3c(card, save_dir):
                            get_optimizer(cfg, model, schedule))
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
-    for bs in (TRAIN_BS, BS):
+    for bs in sizes:
         batch = {"image": torch.randn((bs, 3, 256, 256), generator=gen, device="cuda"),
                  "label": torch.randint(0, cfg.DATA.NUM_CLASSES, (bs, 256, 256),
                                         generator=gen, device="cuda")}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: step(batch), reps=10, warmup=3)
+        ms = cuda_ms(lambda: step(batch), reps=reps, warmup=3)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         rows[bs] = (ms, bs / ms * 1e3, peak)
-        print(f"phase 3c: train step bs {bs} bf16 256^2: {ms:.2f} ms, "
+        print(f"{what}: train step bs {bs} bf16 256^2: {ms:.2f} ms, "
               f"{bs / ms * 1e3:.1f} tiles/s, peak memory {peak:.2f} GiB "
-              f"(median of 10, CUDA events; {card})")
-    profile_step(lambda: step(batch))
-    return launches, rows
+              f"(median of {reps}, CUDA events; {card})")
+    profile_step(lambda: step(batch), f"{what}: profile of one bs-{sizes[-1]} step")
+    del model, step
+    torch.cuda.empty_cache()
+    return rows
 
 
 VARIANT_YAMLS = ("cswin", "vit", "hrnet", "segformer")   # EMRT_256x256_160k_potsdam_{v}.yaml
@@ -1570,7 +1623,8 @@ def _dp_step(model, cfg, device):
 def dp_reference(path):
     """(a)'s global batch of 8 and one process's float32 step on it (dropout
     0, BatchNorm on batch statistics, through the kernels), saved at ``path``
-    with the initial weights. Rank 1's rows differ from rank 0's in what
+    with the initial weights, its gradients (clipped), running statistics
+    and gradient norm before the clip; phase 8 takes it too. Rank 1's rows differ from rank 0's in what
     a data-parallel fault would weigh wrongly: their images have another mean
     and scale (BatchNorm statistics taken per rank), their labels other
     classes, and 80-100% of their pixels are ignored (a mean of the ranks'
@@ -1596,11 +1650,14 @@ def dp_reference(path):
     images = torch.randn((n, 3, h, w), generator=gen, device="cuda")
     images[DP_BS:] = 3 * images[DP_BS:] + 2
     batch = {"image": images, "label": torch.where(ignored, 255, labels)}
-    step = make_train_step(model, get_loss_function(cfg),
-                           get_optimizer(cfg, model, get_scheduler(cfg)))
+    optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
+    step = make_train_step(model, get_loss_function(cfg), optimizer)
     loss = step(batch).item()
     torch.save({"init": init, "loss": loss, "batch": {k: v.cpu() for k, v in batch.items()},
+                "norm": optimizer.grad_norm.item(),
                 "grads": torch.cat([p.grad.flatten() for p in model.parameters()]).cpu(),
+                "learned_reference": {n: p.grad.cpu() for n, p in model.named_parameters()
+                                      if n in LEARNED_REFERENCE},
                 "stats": {k: v.cpu() for k, v in model.state_dict().items()
                           if "running" in k}}, path)
     del model, step
@@ -1861,6 +1918,413 @@ def phase7(card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 8: TP
+
+TP_WORLD = 2                             # (a), (b), (d): dp1 x tp2 on 8 rows
+TP_GRID = (2, 2)                         # (c): dp2 x tp2 (data x model), four ranks
+TP_ITERS, TP_RESUME_ITERS, TP_TIMED = 2, 3, 5
+TP_DROPOUT = 0.1
+# (a): the norm of the whole gradient before the clip, against one process's
+# (read 1.7e-6 to 5.3e-5 apart on the H100), and the gathered gradient's
+# norm after the clip, against GRAD_CLIP (taken in float64; the float32
+# rounding of the clip's own norm, 7.4e-8 to 8.6e-8 read). A norm over the
+# rank's own shards (the group sum taken out) read 1.9e-4 off before the
+# clip and 2.0e-4 after it: the second bound holds it by three orders
+TP_NORM_RTOL, TP_CLIPPED_RTOL = 1e-4, 1e-6
+# (a): the learned reference points' gradients (the decoder's
+# ``reference_points`` Linear and the query embedding it reads), relative L2
+# against one process's: their gradient comes back through every head's
+# sampling locations, so a rank that kept only its own heads' share misses
+# part of it (read 2.9e-4 to 4.1e-4 sound, 0.18 to 0.64 with the reference
+# points' ``copy_in`` taken out; H100). And the largest spread over the model
+# group of a replicated gradient before the optimizer gives it model rank
+# 0's (``GradientSync.spread``, relative to the tensor's largest entry). The
+# ranks' backward kernels add with atomics in no fixed order and BatchNorm's
+# backward amplifies that: up to 3.1e-5 read sound, 0.78 to 1.03 on the
+# reference points with the fault. Held over the tensors whose largest
+# entry is at least TP_SPREAD_FLOOR of the model's largest: below it lie the
+# biases of the convs that a BatchNorm follows (~1e-9 of it), zero in exact
+# arithmetic, whose spread is all rounding
+LEARNED_REFERENCE = ("model.reference_points.weight", "model.reference_points.bias",
+                     "model.query_pos_embed.weight")
+TP_REFERENCE_RTOL, TP_SPREAD_TOL, TP_SPREAD_FLOOR = 1e-2, 1e-3, 1e-6
+# (e): train.main's iterations under torchrun
+TP_TORCHRUN_ITERS = 2
+
+
+def _record_heads(seen: set):
+    """Wrap the kernels' wrappers to add ("fwd" / "bwd", heads) to ``seen``
+    at each call (the launch counts stay the wrappers' own)."""
+    from emrt_tpu_torch.ops import deformable_cuda
+    fwd, bwd = deformable_cuda.ms_deform_attn_fwd, deformable_cuda.ms_deform_attn_bwd
+
+    def fwd_heads(value, *a, **k):
+        seen.add(("fwd", value.shape[2]))
+        return fwd(value, *a, **k)
+
+    def bwd_heads(value, *a, **k):
+        seen.add(("bwd", value.shape[2]))
+        return bwd(value, *a, **k)
+
+    deformable_cuda.ms_deform_attn_fwd, deformable_cuda.ms_deform_attn_bwd = fwd_heads, bwd_heads
+
+
+def _tp_step(cfg, device, init=None, dropout=None):
+    """The flagship split over this rank's model group as the train CLI
+    splits it (``split_model_``, SyncBatchNorm, DDP over the data group
+    where it has more than one rank) and its train step. Returns (model,
+    optimizer, step, names of the split parameters)."""
+    import torch
+    from torch.nn.parallel import DistributedDataParallel
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.parallel import convert_sync_batchnorm
+    from emrt_tpu_torch.parallel.mesh import data_group, data_world, model_group, model_rank
+    from emrt_tpu_torch.parallel.tensor import split_model_, splits_of
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
+    dtype = torch.float32 if cfg.TRAIN.DTYPE == "float32" else torch.bfloat16
+    model = get_model(cfg, device=device, dtype=dtype)
+    if init is not None:
+        model.load_state_dict(init)
+    _set_kernel_and_dropout(model, dropout=dropout)
+    split = set(splits_of(model))
+    split_model_(model, model_rank(), cfg.PARALLEL.MODEL, model_group())
+    convert_sync_batchnorm(model)
+    optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
+    trained = model if data_world() == 1 else DistributedDataParallel(
+        model, device_ids=[device], broadcast_buffers=False, process_group=data_group())
+    return model, optimizer, make_train_step(trained, get_loss_function(cfg), optimizer), split
+
+
+def tp_step_rank(rank, world, devices, reference):
+    """(a), (b) and (d) on one rank of dp1 x tp2: one float32 step of the 8
+    rows at ``reference`` (``dp_reference``) with the model split over the
+    two ranks, its loss, gathered gradients, running statistics and gradient
+    norm against the one-process step's, and the heads and launches of its
+    kernels; then a step with dropout 0.1 after which the replicated
+    parameters must be bitwise equal on both ranks (their SHA-256); then
+    the bf16 step's time and peak memory."""
+    import hashlib
+
+    import torch
+    from emrt_tpu_torch.parallel.mesh import model_parallel
+    from emrt_tpu_torch.parallel.tensor import join_tensor, shard_of, splits_of
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(devices[rank])
+    torch.cuda.set_device(device)
+    ref = torch.load(reference, weights_only=True)
+    cfg = _train_config()
+    cfg.TRAIN.DTYPE = "float32"
+    cfg.PARALLEL.MODEL = TP_WORLD
+    out = {}
+    with model_parallel(TP_WORLD):
+        model, optimizer, step, split = _tp_step(cfg, device, ref["init"], dropout=0.0)
+        optimizer.sync.spread = {}
+        specs = splits_of(model)
+        batch = {k: v.to(device) for k, v in ref["batch"].items()}
+        heads = set()
+        _record_heads(heads)
+        _reset_counts()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        out["launches_a"], out["heads"] = _counts(), sorted(heads)
+        out["loss"], out["loss_ref"] = loss.item(), ref["loss"]
+        out["norm"], out["norm_ref"] = optimizer.grad_norm.item(), ref["norm"]
+        spread = optimizer.sync.spread
+        gmax = {n: p.grad.abs().max().item() for n, p in model.named_parameters()
+                if n in spread}
+        top = max(gmax.values())
+        held = {n: v for n, v in spread.items() if gmax[n] >= TP_SPREAD_FLOOR * top}
+        out["spread"] = max(held.items(), key=lambda kv: kv[1])
+        out["n_spread"], out["spread_floor"] = len(held), sorted(set(spread) - set(held))
+        out["reference_rel"] = {n: ((p.grad.cpu() - ref["learned_reference"][n]).norm()
+                                    / ref["learned_reference"][n].norm()).item()
+                                for n, p in model.named_parameters()
+                                if n in ref["learned_reference"]}
+        shard, grads = shard_of(model), []
+        for name, p in model.named_parameters():
+            g = p.grad.contiguous()
+            if name in split:
+                parts = [torch.empty_like(g) for _ in range(TP_WORLD)]
+                dist.all_gather(parts, g, group=shard.group)
+                g = join_tensor(parts, specs[name])
+            grads.append(g.flatten())
+        grads = torch.cat(grads).cpu()
+        out["clipped_norm"] = grads.double().norm().item()
+        out["clip"] = cfg.TRAIN.OPTIMIZER.GRAD_CLIP
+        out["grad_rel"] = ((grads - ref["grads"]).norm() / ref["grads"].norm()).item()
+        stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
+        out["stats_rel"] = max(((stats[k] - v).abs().max() / v.abs().max()).item()
+                               for k, v in ref["stats"].items())
+        out["n_stats"], out["n_split"] = len(stats), len(split)
+
+        _set_kernel_and_dropout(model, dropout=TP_DROPOUT)
+        torch.manual_seed(1)
+        step(batch)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for name, p in model.named_parameters():
+            if name not in split:
+                digest.update(p.detach().cpu().numpy().tobytes())
+        out["replicated_sha256"] = digest.hexdigest()
+        del model, optimizer, step, grads
+        torch.cuda.empty_cache()
+
+        cfg = _train_config()
+        cfg.PARALLEL.MODEL = TP_WORLD
+        torch.manual_seed(0)
+        _, _, step, _ = _tp_step(cfg, device)
+        gen = torch.Generator(device=device).manual_seed(3)
+        h, w = cfg.DATA.CROP_SIZE
+        batch = {"image": torch.randn((TRAIN_BS, 3, h, w), generator=gen, device=device),
+                 "label": torch.randint(0, cfg.DATA.NUM_CLASSES, (TRAIN_BS, h, w),
+                                        generator=gen, device=device)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        out["step_ms"] = cuda_ms(lambda: step(batch), reps=TP_TIMED, warmup=2)
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        del step
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_step_failures(out) -> list[str]:
+    """The checks of (a) and (b) that ``tp_step_rank``'s result fails."""
+    checks = (
+        (abs(out["loss"] - out["loss_ref"]) <= DP_LOSS_RTOL * abs(out["loss_ref"]),
+         f"TP loss {out['loss']} vs one process's {out['loss_ref']} (rtol {DP_LOSS_RTOL})"),
+        (out["grad_rel"] <= TRAIN_BN_GRAD_RTOL,
+         f"TP gradients differ by {out['grad_rel']} (L2, tol {TRAIN_BN_GRAD_RTOL})"),
+        (out["n_stats"] > 100 and out["stats_rel"] <= DP_STATS_TOL,
+         f"running statistics differ by {out['stats_rel']} x max (tol {DP_STATS_TOL})"),
+        (abs(out["norm"] - out["norm_ref"]) <= TP_NORM_RTOL * out["norm_ref"],
+         f"gradient norm {out['norm']} vs one process's {out['norm_ref']} "
+         f"(rtol {TP_NORM_RTOL})"),
+        (len(out["reference_rel"]) == len(LEARNED_REFERENCE)
+         and max(out["reference_rel"].values()) <= TP_REFERENCE_RTOL,
+         f"the learned reference points' gradients differ by {out['reference_rel']} (L2, "
+         f"tol {TP_REFERENCE_RTOL})"),
+        (out["n_spread"] > 300 and out["spread"][1] <= TP_SPREAD_TOL,
+         f"the replicated gradient {out['spread'][0]} differs over the model group by "
+         f"{out['spread'][1]} x its max before the optimizer gives it rank 0's "
+         f"(tol {TP_SPREAD_TOL})"),
+        (abs(out["clipped_norm"] - min(out["clip"], out["norm"]))
+         <= TP_CLIPPED_RTOL * min(out["clip"], out["norm"]),
+         f"the gathered gradient after the clip has norm {out['clipped_norm']}, not "
+         f"min(GRAD_CLIP {out['clip']}, its norm {out['norm']}) (rtol {TP_CLIPPED_RTOL})"),
+        (out["n_split"] == 4 * 6 + 2 * 3,
+         f"{out['n_split']} split parameters (4 in each of 6 layers, 3 in each of 2 MHAs)"),
+        (tuple(out["launches_a"]) == (6, 6),
+         f"a TP step launched forward/backward {out['launches_a']}"),
+        (out["heads"] == [("bwd", HEADS // TP_WORLD), ("fwd", HEADS // TP_WORLD)],
+         f"the kernels ran at heads {out['heads']}, not {HEADS // TP_WORLD}"))
+    return [what for ok, what in checks if not ok]
+
+
+def _tp_train_argv(save_dir, *extra):
+    return ["--config", str(CONFIG), "--device", "cuda", "--seed", "0",
+            "DATA.DATASET", "Synthetic", "DATA.BATCH_SIZE", str(TRAIN_BS),
+            "TRAIN.DTYPE", "bfloat16", "SAVE_DIR", save_dir, "LOGGING_INFO_FREQ", "1",
+            "SAVE_FREQ_CHECKPOINT", str(TP_ITERS), "VALIDATE_FREQ", str(TP_ITERS),
+            "PARALLEL.MODEL", str(TP_GRID[1]), *extra]
+
+
+def tp_train_rank(rank, world, save_dir):
+    """(c) on one rank of dp2 x tp2: ``train.main --device cuda`` (bf16, 8
+    rows a data rank) with a save and a sharded eval, then ``--resume``.
+    Returns the summaries, the files this rank wrote, its launches and
+    the kernels' heads."""
+    import numpy as np
+    import torch
+    from emrt_tpu_torch.train import main as train_main
+    from emrt_tpu_torch.utils import checkpoint
+    written = []
+    save = checkpoint._save
+
+    def counting_save(obj, path):
+        written.append(Path(path).name)
+        save(obj, path)
+
+    checkpoint._save = counting_save
+    heads = set()
+    _record_heads(heads)
+    _reset_counts()
+    t0 = time.perf_counter()
+    first = train_main(["--iters", str(TP_ITERS), *_tp_train_argv(save_dir)])
+    second = train_main(["--iters", str(TP_RESUME_ITERS), "--resume",
+                         *_tp_train_argv(save_dir)])
+    torch.cuda.synchronize()
+    return {"train_s": time.perf_counter() - t0, "launches": _counts(), "heads": sorted(heads),
+            "first": first, "second": second, "written": written,
+            "finite": bool(np.isfinite(first["losses"] + second["losses"]).all())}
+
+
+def phase8_step(card, backend, devices, reference):
+    """(a), (b) and (d) over ``backend``: dp1 x tp2 with rank r on
+    ``devices[r]``. Returns the kernels' launches in the ranks' runs."""
+    from emrt_tpu_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_step_rank, TP_WORLD, args=(devices[:TP_WORLD], reference),
+                      backend=backend, timeout=600)
+    leg = f"phase 8 ({backend})"
+    print(f"{leg}: dp1 x tp{TP_WORLD} on {', '.join(devices[:TP_WORLD])}: the ranks ran in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for r, out in enumerate(ranks):
+        print(f"{leg}: rank {r} (a) float32 dp1 x tp{TP_WORLD} step of 8 rows: loss "
+              f"{out['loss']:.9g} against one process's {out['loss_ref']:.9g} (rtol "
+              f"{DP_LOSS_RTOL}); gathered gradients |tp-one|/|one| (L2) {out['grad_rel']:.3e} "
+              f"(tol {TRAIN_BN_GRAD_RTOL}); BatchNorm running statistics within "
+              f"{out['stats_rel']:.3e} x max (tol {DP_STATS_TOL}); gradient norm before the "
+              f"clip {out['norm']:.9g} against {out['norm_ref']:.9g} (rtol {TP_NORM_RTOL}), "
+              f"after it {out['clipped_norm']:.9g} (GRAD_CLIP {out['clip']}, rtol "
+              f"{TP_CLIPPED_RTOL}); learned reference points' gradients |tp-one|/|one| (L2) "
+              f"{', '.join(f'{v:.3e}' for v in out['reference_rel'].values())} (tol "
+              f"{TP_REFERENCE_RTOL}); largest spread of {out['n_spread']} replicated "
+              f"gradients over the ranks before the overwrite {out['spread'][1]:.3e} x max "
+              f"({out['spread'][0]}; tol {TP_SPREAD_TOL}; at rounding level, not held: "
+              f"{', '.join(out['spread_floor'])}); "
+              f"{out['n_split']} split parameters; (b) launches forward/backward "
+              f"{out['launches_a']} at heads {out['heads']}")
+        failures = tp_step_failures(out)
+        check(not failures, f"rank {r}: {'; '.join(failures)}")
+        note = ("the ranks share one card: not a scaling figure"
+                if len(set(devices[:TP_WORLD])) == 1 else "one card a rank")
+        print(f"{leg}: rank {r} (d) bf16 dp1 x tp{TP_WORLD} step, {TRAIN_BS} rows: "
+              f"{out['step_ms']:.2f} ms (median of {TP_TIMED}, CUDA events), peak memory "
+              f"{out['peak_gib']:.2f} GiB ({card}; {note})")
+    check(len({out["replicated_sha256"] for out in ranks}) == 1,
+          f"the replicated parameters differ between the ranks after a step with dropout "
+          f"{TP_DROPOUT}")
+    print(f"{leg}: (a) after a step with dropout {TP_DROPOUT} the replicated parameters are "
+          f"bitwise equal on the {TP_WORLD} ranks (sha256 {ranks[0]['replicated_sha256'][:16]})")
+    return [sum(out["launches_a"][i] for out in ranks) for i in range(2)]
+
+
+def phase8_leg(card, backend, devices, reference, save_dir):
+    """(a)-(d) over ``backend``: dp1 x tp2 with rank r on ``devices[r]``,
+    then, where there are four devices, dp2 x tp2 ``train.main`` and
+    single-process ``val.main`` on its best_model.pt. Returns the kernels'
+    launches in the ranks' runs."""
+    import json
+
+    import torch
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.parallel.launch import run_ranks
+    from emrt_tpu_torch.val import main as val_main
+    launches = phase8_step(card, backend, devices, reference)
+    leg = f"phase 8 ({backend})"
+    n = TP_GRID[0] * TP_GRID[1]
+    if len(devices) < n:
+        print(f"{leg}: (c) dp{TP_GRID[0]} x tp{TP_GRID[1]} needs {n} devices, "
+              f"{len(devices)} given: not run on this leg")
+        return tuple(launches)
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_train_rank, n, args=(save_dir,), backend=backend, timeout=900)
+    save_dir = Path(save_dir)
+    grid = f"dp{TP_GRID[0]} x tp{TP_GRID[1]} on {', '.join(devices[:n])}"
+    print(f"{leg}: {grid}: the ranks ran in {time.perf_counter() - t0:.1f} s")
+    for r, out in enumerate(ranks):
+        first, second = out["first"], out["second"]
+        steps = first["steps"] + second["steps"]
+        forwards = first["eval_forwards"] + second["eval_forwards"]
+        flops = 2 * FLOPS_FORWARDS if r == 0 else 0       # rank 0's whole-model count
+        print(f"{leg}: rank {r} (c) train.main bf16 {TRAIN_BS} rows a data rank, {TP_ITERS} + "
+              f"{TP_RESUME_ITERS - TP_ITERS} iterations (--resume) in {out['train_s']:.1f} s: "
+              f"window losses {[round(x, 4) for x in first['losses'] + second['losses']]}, "
+              f"mIoU {first['mious'] + second['mious']}, {forwards} eval and {flops} FLOPs "
+              f"forwards, launches forward/backward {out['launches']} at heads {out['heads']}, "
+              f"files written {out['written']}")
+        check(out["finite"], f"rank {r}: losses {first['losses'] + second['losses']}")
+        check(first["last_iter"] == TP_ITERS and second["start_iter"] == TP_ITERS
+              and second["last_iter"] == TP_RESUME_ITERS,
+              f"rank {r}: ran to {first['last_iter']}, resumed {second['start_iter']} -> "
+              f"{second['last_iter']}")
+        check(tuple(out["launches"]) == (6 * (steps + forwards + flops), 6 * steps),
+              f"rank {r}: launches {out['launches']} for {steps} steps, {forwards} eval and "
+              f"{flops} FLOPs forwards")
+        want_heads = {("fwd", HEADS // TP_GRID[1]), ("bwd", HEADS // TP_GRID[1])}
+        if r == 0:
+            want_heads.add(("fwd", HEADS))                  # the whole model's FLOPs count
+        check(set(out["heads"]) == want_heads, f"rank {r}: kernels at heads {out['heads']}")
+        check(bool(out["written"]) == (r == 0), f"rank {r} wrote {out['written']}")
+        check(first["losses"] == ranks[0]["first"]["losses"]
+              and second["losses"] == ranks[0]["second"]["losses"]
+              and second["mious"] == ranks[0]["second"]["mious"],
+              f"rank {r} logged other losses or mIoU than rank 0")
+        launches = [a + b for a, b in zip(launches, out["launches"])]
+    check(sorted(p.name for p in (save_dir / "checkpoints").iterdir())
+          == [f"iter_{TP_RESUME_ITERS}.pt"], "checkpoints after --resume")
+    cfg = _train_config()
+    whole = {k: tuple(v.shape) for k, v in get_model(cfg, device="meta").state_dict().items()}
+    saved = torch.load(save_dir / "checkpoints" / f"iter_{TP_RESUME_ITERS}.pt",
+                       weights_only=True, map_location="cpu")
+    check({k: tuple(v.shape) for k, v in saved["model"].items()} == whole,
+          "the checkpoint does not hold the one-process model's tensors")
+    best = json.loads((save_dir / "best_model.json").read_text())["best_miou"]
+    check(best == max(ranks[0]["first"]["mious"] + ranks[0]["second"]["mious"]),
+          f"best_model.json {best}")
+    result = val_main(["--config", str(CONFIG), "--device", "cuda", "--model_path",
+                       str(save_dir / "best_model.pt"), "DATA.DATASET", "Synthetic",
+                       "TRAIN.DTYPE", "bfloat16"])
+    print(f"{leg}: one-process val.main on the {grid} run's best_model.pt (whole tensors): "
+          f"mIoU {result['miou']:.6f} against the run's {best:.6f}")
+    check(abs(result["miou"] - best) <= F6_MIOU_TOL,
+          f"val.main gives mIoU {result['miou']}, the TP run {best}")
+    return tuple(launches)
+
+
+def phase8_torchrun(save_dir):
+    """(e) ``torchrun --standalone --nproc_per_node 2 -m emrt_tpu_torch.train
+    --device cuda ... PARALLEL.MODEL 2`` for two iterations (dp1 x tp2)."""
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", str(TP_WORLD), "-m", "emrt_tpu_torch.train"]
+    t0 = time.perf_counter()
+    out = _run_group([*launch, "--config", str(CONFIG), "--device", "cuda", "--iters",
+                      str(TP_TORCHRUN_ITERS), "DATA.DATASET", "Synthetic", "DATA.BATCH_SIZE",
+                      str(TRAIN_BS), "TRAIN.DTYPE", "bfloat16", "SAVE_DIR", save_dir,
+                      "PARALLEL.MODEL", str(TP_WORLD)], timeout=600)
+    check(f"ranks: {TP_WORLD}" in out and f"model axis = {TP_WORLD}" in out
+          and f"training done at iter {TP_TORCHRUN_ITERS}" in out,
+          f"torchrun train.main PARALLEL.MODEL {TP_WORLD}:\n{out[-4000:]}")
+    losses = re.findall(r"loss: ([0-9.na]+)", out)
+    check(losses and all(float(x) == float(x) for x in losses), f"losses {losses}")
+    print(f"phase 8 (e): torchrun --nproc_per_node {TP_WORLD} train.main --device cuda "
+          f"PARALLEL.MODEL {TP_WORLD}, {TP_TORCHRUN_ITERS} iterations with a save and an "
+          f"eval, in {time.perf_counter() - t0:.1f} s: losses {losses}")
+
+
+def phase8(card):
+    """Tensor parallelism (``emrt_tpu_torch.parallel.tensor``) on the
+    flagship at full width and depth: dp1 x tp2 and dp2 x tp2 with the ranks
+    on the one card over gloo, over NCCL a card a rank where there are
+    cards enough; then the train CLI under torchrun. Returns the forward
+    and backward launches of the ranks' runs."""
+    import tempfile
+
+    import torch
+    torch.cuda.empty_cache()
+    launches = (0, 0)
+    n = TP_GRID[0] * TP_GRID[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        reference = dp_reference(Path(tmp) / "reference.pt")
+        legs = [("gloo", ["cuda:0"] * n)]
+        if torch.cuda.device_count() >= TP_WORLD:
+            legs.append(("nccl", [f"cuda:{r}" for r in range(min(n, torch.cuda.device_count()))]))
+        for backend, devices in legs:
+            got = phase8_leg(card, backend, devices, reference, str(Path(tmp) / backend))
+            launches = tuple(a + b for a, b in zip(launches, got))
+        phase8_torchrun(str(Path(tmp) / "torchrun"))
+    if torch.cuda.device_count() < TP_WORLD:
+        print(f"phase 8: the NCCL leg was not run: {torch.cuda.device_count()} card(s), it "
+              f"needs {TP_WORLD} (and {n} for dp{TP_GRID[0]} x tp{TP_GRID[1]})")
+    print(f"phase 8: K1 / K2-K3 launches in the ranks' runs: {launches}")
+    return launches
+
+
 _CATEGORIES = (   # (category, substrings of a kernel's name), first match wins
     ("K1 deformable fwd", ("ms_deform_attn_fwd",)),
     ("K2+K3 deformable bwd (fused)", ("ms_deform_attn_bwd",)),
@@ -1944,12 +2408,24 @@ def main():
         _, inference_launches = phase5(card, save_dir)
     phase6(card)
     dp_launches = phase7(card)
+    tp_launches = phase8(card)
     from emrt_tpu_torch.ops import deformable_cuda
     name, levels, len_q = SHAPES[0]
     fwd = fwd_times[name, BS, torch.bfloat16]
     plan = deformable_cuda.fwd_plan(levels, HEAD_DIM, torch.bfloat16, BS, HEADS, len_q,
                                     torch.cuda.get_device_properties(0).multi_processor_count)
     timed_at = f"{name} bs {BS} bf16, random locations"
+
+    def at_tp_heads(times):
+        """The kernel's numbers at the TP ranks' head counts (TP_SHAPES, bs 32,
+        bf16, random locations)."""
+        return {f"{tp_name} bs {BS} bf16": {
+            "ms": times[tp_name, BS, torch.bfloat16]["random"],
+            "plain_ms": times[tp_name, BS, torch.bfloat16]["plain"],
+            "bound_ms": times[tp_name, BS, torch.bfloat16]["bound"][0],
+            "bound_by": times[tp_name, BS, torch.bfloat16]["bound"][1]}
+            for tp_name, *_ in TP_SHAPES}
+
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ms_deform_attn_fwd", "route": "cuda",
@@ -1957,25 +2433,48 @@ def main():
          "replaces": "emrt_tpu/ops/deformable_pallas.py:50",
          "launches": launches, "launches_train": train_launches[0],
          "launches_variants": variant_launches[0], "launches_inference": inference_launches,
-         "launches_dp": dp_launches[0],
+         "launches_dp": dp_launches[0], "launches_tp": tp_launches[0],
          "max_abs_err": max_err, "ms": fwd["random"], "ms_on_the_grid": fwd["on the grid"],
          "ms_bs8": fwd_times[name, TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": fwd["plain"], "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
-         "library_ms": None, "plan": str(plan), "timed_at": timed_at, "card": card},
+         "library_ms": None, "plan": str(plan), "timed_at": timed_at,
+         "tp_heads": at_tp_heads(fwd_times), "card": card},
         {"name": "ms_deform_attn_bwd", "route": "cuda",
          "source": "emrt_tpu_torch/csrc/ms_deform_attn_bwd.cu",
          "replaces": "emrt_tpu/ops/deformable_pallas.py:200 "
                      "emrt_tpu/ops/deformable_pallas.py:277",
          "launches": train_launches[1], "launches_variants": variant_launches[1],
-         "launches_dp": dp_launches[1],
+         "launches_dp": dp_launches[1], "launches_tp": tp_launches[1],
          "max_abs_err": bwd_err, "ms": bwd["random"], "ms_on_the_grid": bwd["on the grid"],
          "ms_bs8": bwd_times[SHAPES[0][0], TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": bwd["plain"], "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],
-         "library_ms": None, "timed_at": timed_at, "card": card}]}))
+         "library_ms": None, "timed_at": timed_at, "tp_heads": at_tp_heads(bwd_times),
+         "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
+def main_tp_step():
+    """``--tp-step``: phase 0, then phase 8's dp1 x tp2 step alone ((a),
+    (b) and (d) over gloo, both ranks on the first card)."""
+    import tempfile
+    card = phase0()
+    with tempfile.TemporaryDirectory() as tmp:
+        reference = dp_reference(Path(tmp) / "reference.pt")
+        phase8_step(card, "gloo", ["cuda:0"] * TP_WORLD, reference)
+    print("chip_smoke.py --tp-step: passed")
+
+
+def main_train_step():
+    """``--train-step``: phase 0, then phase 3c's timing of one process's
+    bf16 bs-8 train step alone (median of 20)."""
+    card = phase0()
+    time_train_steps(card, (TRAIN_BS,), reps=20, what="--train-step")
+
+
 if __name__ == "__main__":
-    main()
+    modes = {"--tp-step": main_tp_step, "--train-step": main_train_step}
+    if sys.argv[1:] and sys.argv[1] not in modes:
+        sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")
+    modes.get(sys.argv[1] if sys.argv[1:] else None, main)()

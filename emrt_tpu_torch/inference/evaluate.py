@@ -10,10 +10,12 @@ shapes goes through ``_variable_shape_predict``. The int64 confusion matrix
 accumulates on the device.
 
 Under data parallelism (the JAX package's mesh path, ``evaluate.py:104-141``;
-reference val.py:164-180) rank r predicts the batches j = r (mod world),
-each as one process would build it (so the mixed-shape canvas and the
-padding are the same), and the confusion areas and image counts of all
-ranks are summed: every rank returns the one-process result.
+reference val.py:164-180) data rank r of N predicts the batches j = r (mod
+N), each as one process would build it (so the mixed-shape canvas and the
+padding are the same), and the confusion areas and image counts of the
+data group are summed: every rank returns the one-process result. The
+ranks of a model group (``parallel/mesh.py``) predict the same batches
+together.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from ..data.loader import val_batches
 from ..ops.resize import batched_resize_bilinear_padded, resize_bilinear
-from ..parallel.mesh import all_reduce_sum, is_distributed, is_main, rank, world_size
+from ..parallel.mesh import all_reduce_data, data_rank, data_world, is_main
 from ..utils.logger import logger
 from ..utils.metrics import MetricAccumulator, confusion_matrix
 from .slide import ms_inference, slide_inference, ss_inference
@@ -113,7 +115,7 @@ def evaluate(forward, dataset, config, device, multi_scales: bool = False,
 
     start = time.time()
     n_img = 0
-    shard, n_shards = rank(), world_size()
+    shard, n_shards = data_rank(), data_world()
     bar = None
     if progbar and is_main():
         from ..utils.progbar import Progbar
@@ -156,8 +158,8 @@ def evaluate(forward, dataset, config, device, multi_scales: bool = False,
         # the loop's last update finalizes when n_img reaches the target;
         # only a short run is finalized here, so no line is written twice
         bar.update(n_img, finalize=True)
-    if is_distributed():
-        totals = all_reduce_sum(torch.cat([cm_total.flatten(), cm_total.new_tensor([n_img])]))
+    if n_shards > 1:
+        totals = all_reduce_data(torch.cat([cm_total.flatten(), cm_total.new_tensor([n_img])]))
         cm_total, n_img = totals[:-1].view_as(cm_total), int(totals[-1])
     cm = cm_total.cpu().numpy()
     acc.update_areas(np.diagonal(cm), cm.sum(axis=0), cm.sum(axis=1))

@@ -13,26 +13,28 @@ all ``ignore_index`` gives 0 (``F.cross_entropy``'s mean gives NaN there).
 
 Under data parallelism (``parallel/mesh.py``) the JAX package's mean is over
 the global batch: the count of kept pixels (and OHEM's k-th probability) is
-that of every rank's rows together. Each rank then returns world x (its
-rows' sum) / (the global count), so that the mean of the ranks' losses is
-the global loss and DDP's average of the ranks' gradients is its gradient;
-an all-ignored rank contributes 0. With one process nothing changes.
+that of the rows of every rank of the data group together (the ranks of a
+model group hold the same rows). Each rank then returns N x (its rows'
+sum) / (the global count), N the data group's ranks, so that the mean of
+the ranks' losses is the global loss and DDP's average of the ranks'
+gradients is its gradient; an all-ignored rank contributes 0. With one
+data rank nothing changes.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import all_reduce_sum, is_distributed, rank, world_size
+from ..parallel.mesh import all_reduce_data, data_rank, data_world
 
 
 def _mean(total, count):
     """total / max(count, 1) of one process; under data parallelism this
-    rank's share of the global mean, times the world size."""
-    if not is_distributed():
+    rank's share of the global mean, times the data group's ranks."""
+    if data_world() == 1:
         return total / count.clamp(min=1)
-    count = all_reduce_sum(count.detach().float())
-    return total * world_size() / count.clamp(min=1)
+    count = all_reduce_data(count.detach().float())
+    return total * data_world() / count.clamp(min=1)
 
 
 def masked_ce(logits, label, ignore_index: int = 255):
@@ -117,10 +119,10 @@ class OhemCrossEntropyLoss:
         nll = -F.log_softmax(logits, dim=1).gather(1, safe)[:, 0]
         true_prob = torch.where(valid, prob, 1.0).flatten()
         every = true_prob
-        if is_distributed():      # the ranks' rows in rank order, as one flat batch
-            every = true_prob.new_zeros((world_size(), true_prob.numel()))
-            every[rank()] = true_prob.detach()
-            every = all_reduce_sum(every).flatten()
+        if data_world() > 1:      # the data ranks' rows in order, as one flat batch
+            every = true_prob.new_zeros((data_world(), true_prob.numel()))
+            every[data_rank()] = true_prob.detach()
+            every = all_reduce_data(every).flatten()
         k = min(self.min_kept, every.numel())
         kth = torch.kthvalue(every, k).values
         keep = (true_prob <= kth.clamp(min=self.thresh)) & valid.flatten()

@@ -28,13 +28,15 @@ from .vit import Attention
 class _Attention(Attention):
     """The ViT's attention with its output projection named ``proj``."""
 
+    TP_SPLITS = {"qkv.weight": (0, 3), "qkv.bias": (0, 3), "proj.weight": (1, 1)}
+
     def __init__(self, dim: int, num_heads: int, attn_dropout: float = 0.0):
         super().__init__(dim, num_heads, attn_dropout)
         self.proj = self.out
         del self.out
 
     def forward(self, x):
-        return self.proj(self.attend(x))
+        return self.project(self.attend(x), self.proj)
 
 
 class Block(nn.Module):

@@ -20,35 +20,61 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ..layers import Mlp, layer_norm, xavier_uniform_
+from ..layers import Mlp, layer_norm, split_dropout, xavier_uniform_
 
 
 class Attention(nn.Module):
     """Multi-head self-attention, fused ``qkv`` (q, k, v column blocks) and
-    ``out``; the softmax in float32."""
+    ``out``; the softmax in float32. Split over a model group
+    (``parallel/tensor.py``; the JAX ``ViTBlock``'s ``MultiHeadAttention``
+    under ``tp_rule``), a rank holds its heads' rows of each q, k, v block
+    of ``qkv`` and the matching input columns of the output projection,
+    whose bias is added once after the group's sum; the ``Mlp`` stays
+    replicated."""
 
-    def __init__(self, dim: int, num_heads: int, attn_dropout: float = 0.0):
+    TP_SPLITS = {"qkv.weight": (0, 3), "qkv.bias": (0, 3), "out.weight": (1, 1)}
+    tp = None
+
+    def __init__(self, dim: int, num_heads: int, attn_dropout: float = 0.0,
+                 qkv_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop = nn.Dropout(attn_dropout)
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         for w in self.qkv.weight.data.chunk(3):
             nn.init.xavier_uniform_(w)
-        nn.init.zeros_(self.qkv.bias)
+        if qkv_bias:
+            nn.init.zeros_(self.qkv.bias)
         self.out = xavier_uniform_(nn.Linear(dim, dim))
 
+    def tp_dims(self) -> dict:
+        return {"heads": self.num_heads}
+
     def attend(self, x):
-        """The heads' outputs, concatenated, before the output projection."""
+        """The heads' outputs (a split rank's), concatenated, before the
+        output projection."""
         b, n, c = x.shape
         hd = c // self.num_heads
-        q, k, v = self.qkv(x).view(b, n, 3, self.num_heads, hd).unbind(2)
+        tp = self.tp
+        heads = self.num_heads // (tp.world if tp is not None else 1)
+        if tp is not None:
+            x = tp.copy_in(x)
+        q, k, v = self.qkv(x).view(b, n, 3, heads, hd).unbind(2)
         attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
-        attn = self.attn_drop(attn.float().softmax(-1).to(v.dtype))
-        return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, c)
+        attn = split_dropout(attn.float().softmax(-1).to(v.dtype), self.attn_drop.p,
+                             self.training, 1, tp)
+        return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, heads * hd)
+
+    def project(self, out, linear):
+        """The output projection ``linear`` of ``attend``'s heads."""
+        if self.tp is None:
+            return linear(out)
+        return self.tp.reduce_out(F.linear(out, linear.weight), linear.bias)
 
     def forward(self, x):
-        return self.out(self.attend(x))
+        return self.project(self.attend(x), self.out)
 
 
 class EncoderLayer(nn.Module):

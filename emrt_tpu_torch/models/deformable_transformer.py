@@ -11,6 +11,15 @@ Numerics follow the JAX package, not Paddle: LayerNorm and GroupNorm use
 flax's default eps 1e-6 where Paddle uses 1e-5 (an open question in
 ROADMAP.md queue 3), GELU is the tanh form (flax's default), the attention
 softmax and the decoder reference points run in float32.
+
+Split over a model group (``parallel/tensor.py``, PARALLEL.MODEL = T), as
+the JAX package's ``tp_rule`` places them: ``MSDeformableAttention`` runs
+head-parallel (``value_proj``'s output rows and ``output_proj``'s input
+columns of the rank's nh/T heads; the offsets and attention weights of its
+heads from the replicated ``sampling_offsets`` / ``attention_weights``,
+whose rows are head-major), so the deformable core runs at nh/T heads; the
+layers' FFNs split ``linear1``'s output rows and ``linear2``'s input
+columns; the decoder's ``MultiHeadAttention`` splits by heads.
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deformable import deformable_attention, deformable_attention_core
-from .layers import NORM_EPS, MultiHeadAttention, layer_norm, xavier_uniform_
+from .layers import NORM_EPS, MultiHeadAttention, layer_norm, split_dropout, xavier_uniform_
 from .position_encoding import encoder_reference_points, sine_position_embedding
 
 
@@ -60,7 +69,18 @@ class MSDeformableAttention(nn.Module):
     ``ops.deformable.deformable_attention`` (CUDA kernels on CUDA tensors, the
     plain version on CPU tensors); False always runs the plain version
     (``models.get_model(..., use_kernel=False)`` sets it).
+
+    Split over a model group (``tp``, ``parallel/tensor.py``) it runs the
+    rank's nh/T heads: ``value_proj`` holds their output rows,
+    ``output_proj`` their input columns (its bias is added once, after the
+    group's sum); the offsets and weights are the rank's rows of the
+    replicated projections, head-major ``(h, l, p[, 2])``.
     """
+
+    TP_SPLITS = {"value_proj.weight": (0, 1), "output_proj.weight": (1, 1)}
+    TP_PARTIAL = ("sampling_offsets.weight", "sampling_offsets.bias",
+                  "attention_weights.weight", "attention_weights.bias", "value_proj.bias")
+    tp = None
 
     def __init__(self, embed_dim: int = 256, num_heads: int = 8,
                  num_levels: int = 3, num_points: int = 4):
@@ -82,15 +102,35 @@ class MSDeformableAttention(nn.Module):
         nn.init.zeros_(self.attention_weights.weight)
         nn.init.zeros_(self.attention_weights.bias)
 
+    def tp_dims(self) -> dict:
+        return {"heads": self.num_heads}
+
+    def _rows(self, linear):
+        """The weight and bias rows of this rank's heads (all of them
+        unsplit)."""
+        if self.tp is None:
+            return linear.weight, linear.bias
+        rows = self.tp.rows(linear.out_features)
+        return linear.weight[rows], linear.bias[rows]
+
     def forward(self, query, reference_points, value, spatial_shapes):
         """query [bs, Lq, C]; reference_points [bs or 1, Lq, L, 2] in [0, 1];
         value [bs, Lv, C]; spatial_shapes static ((H, W), ...)."""
         bs, len_q, _ = query.shape
         len_v = value.shape[1]
-        nh, nl, npt = self.num_heads, self.num_levels, self.num_points
-        value = self.value_proj(value).view(bs, len_v, nh, self.embed_dim // nh)
-        offsets = self.sampling_offsets(query).view(bs, len_q, nh, nl, npt, 2)
-        attn = self.attention_weights(query).view(bs, len_q, nh, nl * npt)
+        tp = self.tp
+        nl, npt = self.num_levels, self.num_points
+        nh = self.num_heads // (tp.world if tp is not None else 1)
+        if tp is not None:   # the decoder's reference points are learned: copied in too
+            query, value = tp.copy_in(query), tp.copy_in(value)
+            reference_points = tp.copy_in(reference_points)
+        bias = self.value_proj.bias if tp is None else self.value_proj.bias[
+            tp.rows(self.embed_dim)]
+        value = F.linear(value, self.value_proj.weight, bias).view(
+            bs, len_v, nh, self.embed_dim // self.num_heads)
+        offsets = F.linear(query, *self._rows(self.sampling_offsets)).view(
+            bs, len_q, nh, nl, npt, 2)
+        attn = F.linear(query, *self._rows(self.attention_weights)).view(bs, len_q, nh, nl * npt)
         attn = attn.float().softmax(-1).view(bs, len_q, nh, nl, npt).to(value.dtype)
         normalizer = _level_tables(tuple(spatial_shapes), self.embed_dim,
                                    query.device)[2]
@@ -99,7 +139,9 @@ class MSDeformableAttention(nn.Module):
         core = deformable_attention if self.use_kernel else deformable_attention_core
         out = core(value.contiguous(), tuple(spatial_shapes), loc.contiguous(),
                    attn.contiguous())
-        return self.output_proj(out)
+        if tp is None:
+            return self.output_proj(out)
+        return tp.reduce_out(F.linear(out, self.output_proj.weight), self.output_proj.bias)
 
 
 def tokens_to_levels(tokens, spatial_shapes):
@@ -128,7 +170,34 @@ def conv_enhance(convs, tokens, spatial_shapes):
     return levels_to_tokens(outs)
 
 
-class EncoderLayer(nn.Module):
+class _SplitFFN:
+    """The FFN of an encoder or decoder layer, ``linear2(dropout(relu(
+    linear1(x))))``. Split over a model group (``tp``), a rank holds
+    ``linear1``'s rows and ``linear2``'s columns of its 1/T of the hidden
+    width; ``linear1``'s bias stays replicated (as ``tp_rule`` leaves it)
+    and is read on the rank's rows, ``linear2``'s is added once after the
+    group's sum."""
+
+    TP_SPLITS = {"linear1.weight": (0, 1), "linear2.weight": (1, 1)}
+    TP_PARTIAL = ("linear1.bias",)
+    tp = None
+
+    def tp_dims(self) -> dict:
+        return {"FFN hidden units": self.linear1.out_features}
+
+    def ffn(self, x):
+        tp = self.tp
+        bias = self.linear1.bias
+        if tp is not None:
+            x, bias = tp.copy_in(x), bias[tp.rows(bias.numel())]
+        h = F.relu(F.linear(x, self.linear1.weight, bias))
+        h = split_dropout(h, self.dropout.p, self.training, -1, tp)
+        if tp is None:
+            return self.linear2(h)
+        return tp.reduce_out(F.linear(h, self.linear2.weight), self.linear2.bias)
+
+
+class EncoderLayer(_SplitFFN, nn.Module):
     """Deformable self-attn + FFN + conv-branch fusion (reference :109-204)."""
 
     def __init__(self, d_model: int = 256, n_head: int = 8,
@@ -151,12 +220,11 @@ class EncoderLayer(nn.Module):
         src_conv = conv_enhance(convs, src, spatial_shapes)
         src2 = self.self_attn(src + pos_embed, reference_points, src, spatial_shapes)
         src = self.norm1(src + self.dropout(src2))
-        x = self.linear2(self.dropout(F.relu(self.linear1(src))))
-        src = self.norm2(src + self.dropout(x))
+        src = self.norm2(src + self.dropout(self.ffn(src)))
         return src + src_conv
 
 
-class DecoderLayer(nn.Module):
+class DecoderLayer(_SplitFFN, nn.Module):
     """MHSA over queries + deformable cross-attn + FFN (reference :242-295)."""
 
     def __init__(self, d_model: int = 256, n_head: int = 8,
@@ -178,8 +246,7 @@ class DecoderLayer(nn.Module):
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, memory,
                                spatial_shapes)
         tgt = self.norm2(tgt + self.dropout(tgt2))
-        x = self.linear2(self.dropout(F.relu(self.linear1(tgt))))
-        return self.norm3(tgt + self.dropout(x))
+        return self.norm3(tgt + self.dropout(self.ffn(tgt)))
 
 
 class _Layers(nn.Module):

@@ -152,13 +152,41 @@ def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=NORM_EPS)
 
 
+def split_dropout(x, p: float, training: bool, dim: int, shard=None):
+    """Dropout at a site whose activations a model group splits along
+    ``dim`` (the FFN's hidden width, the attention's heads): the keep mask
+    of the full width is drawn, as one process draws it, and a rank of a
+    split model (``shard``, ``parallel/tensor.py``) keeps its slice. One
+    process draws through here too, so a split run consumes the generator
+    alike. Kept values are multiplied by 1 / (1 - p) in one kernel each way
+    (``native_dropout_backward``, torch's own dropout's: flax's ``Dropout``
+    divides by 1 - p, the same to a float spacing)."""
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - p
+    dim = dim % x.dim()
+    full = list(x.shape)
+    full[dim] *= shard.world if shard is not None else 1
+    mask = torch.empty(full, dtype=torch.bool, device=x.device).bernoulli_(keep)
+    if shard is not None:
+        mask = mask.narrow(dim, shard.rank * x.shape[dim], x.shape[dim])
+    return torch.ops.aten.native_dropout_backward(x, mask, 1.0 / keep)
+
+
 class MultiHeadAttention(nn.Module):
     """Standard MHA over token sequences (reference layers.py:144-311).
 
     Fused ``in_proj_weight [3E, E]`` (q, k, v row blocks) and
     ``in_proj_bias [3E]`` as in the reference; scaled dot product with the
     softmax in float32, then ``out_proj``. Plain matmuls, as the JAX einsum.
+    Split over a model group (``parallel/tensor.py``), a rank holds its
+    heads' rows of each q, k, v block and of their biases and the matching
+    input columns of ``out_proj``, whose bias is added once after the
+    group's sum.
     """
+
+    TP_SPLITS = {"in_proj_weight": (0, 3), "in_proj_bias": (0, 3), "out_proj.weight": (1, 1)}
+    tp = None
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -171,17 +199,31 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = xavier_uniform_(nn.Linear(embed_dim, embed_dim))
         self.dropout = nn.Dropout(dropout)
 
+    def tp_dims(self) -> dict:
+        return {"heads": self.num_heads}
+
     def forward(self, query, key=None, value=None):
         key = query if key is None else key
         value = key if value is None else value
+        tp = self.tp
+        if tp is not None:   # one copy into the split region per distinct input
+            copies = {}
+            for t in (query, key, value):
+                if id(t) not in copies:
+                    copies[id(t)] = tp.copy_in(t)
+            query, key, value = (copies[id(t)] for t in (query, key, value))
         bs, len_q, e = query.shape
         head_dim = e // self.num_heads
+        heads = self.num_heads // (tp.world if tp is not None else 1)
         w_q, w_k, w_v = self.in_proj_weight.chunk(3)
         b_q, b_k, b_v = self.in_proj_bias.chunk(3)
-        q = F.linear(query, w_q, b_q).view(bs, len_q, self.num_heads, head_dim)
-        k = F.linear(key, w_k, b_k).view(bs, -1, self.num_heads, head_dim)
-        v = F.linear(value, w_v, b_v).view(bs, -1, self.num_heads, head_dim)
+        q = F.linear(query, w_q, b_q).view(bs, len_q, heads, head_dim)
+        k = F.linear(key, w_k, b_k).view(bs, -1, heads, head_dim)
+        v = F.linear(value, w_v, b_v).view(bs, -1, heads, head_dim)
         attn = torch.einsum("bqhd,bkhd->bhqk", q * head_dim ** -0.5, k)
-        attn = self.dropout(attn.float().softmax(-1).to(v.dtype))
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(bs, len_q, e)
-        return self.out_proj(out)
+        attn = split_dropout(attn.float().softmax(-1).to(v.dtype), self.dropout.p,
+                             self.training, 1, tp)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(bs, len_q, heads * head_dim)
+        if tp is None:
+            return self.out_proj(out)
+        return tp.reduce_out(F.linear(out, self.out_proj.weight), self.out_proj.bias)

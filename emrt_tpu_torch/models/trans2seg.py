@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear
 from .backbones.resnet import backbone_channels, resnet
+from .backbones.vit import Attention
 from .layers import BatchNorm2d, Mlp, layer_norm, xavier_uniform_
 
 
@@ -40,24 +41,19 @@ def _conv(cin, cout, k=1, groups=1, bias=False):
     return xavier_uniform_(nn.Conv2d(cin, cout, k, padding=k // 2, groups=groups, bias=bias))
 
 
-class _EncoderAttention(nn.Module):
-    """Self-attention with a bias-free fused ``qkv`` and a biased ``proj``."""
+class _EncoderAttention(Attention):
+    """Self-attention with a bias-free fused ``qkv`` and a biased ``proj``:
+    the ViT's ``Attention``, split over a model group as it is."""
+
+    TP_SPLITS = {"qkv.weight": (0, 3), "proj.weight": (1, 1)}
 
     def __init__(self, dim: int, num_heads: int):
-        super().__init__()
-        self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
-        for w in self.qkv.weight.data.chunk(3):
-            nn.init.xavier_uniform_(w)
-        self.proj = xavier_uniform_(nn.Linear(dim, dim))
+        super().__init__(dim, num_heads, qkv_bias=False)
+        self.proj = self.out
+        del self.out
 
     def forward(self, x):
-        b, n, c = x.shape
-        hd = c // self.num_heads
-        q, k, v = self.qkv(x).view(b, n, 3, self.num_heads, hd).unbind(2)
-        attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
-        attn = attn.float().softmax(-1).to(v.dtype)
-        return self.proj(torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, c))
+        return self.project(self.attend(x), self.proj)
 
 
 class _EncoderBlock(nn.Module):

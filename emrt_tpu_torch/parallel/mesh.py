@@ -1,18 +1,26 @@
-"""Data parallelism over processes (counterpart of ``emrt_tpu/parallel/mesh.py``;
-reference train.py:116-123, val.py:164-170).
+"""The process grid of data and tensor parallelism (counterpart of
+``emrt_tpu/parallel/mesh.py``; reference train.py:116-123, val.py:164-170).
 
-The JAX package shards the batch over the ``data`` axis of one mesh and lets
-XLA insert the collectives. Here each of N processes (one per GPU, started by
-``torchrun --nproc_per_node N``) holds a replica and its own rows of the
-global batch: DDP all-reduces the gradients, ``sync_bn.SyncBatchNorm2d``
-takes BatchNorm statistics over the global batch, the losses divide by the
-global count of kept pixels and ``evaluate`` sums the confusion areas of all
-ranks. Without a process group (one process, no ``torchrun``) every function
-here answers for one rank and nothing communicates.
+The JAX package lays its devices out as a ``(data, model, spatial)`` mesh
+and lets XLA insert the collectives. Here each of N processes (one per GPU,
+started by ``torchrun --nproc_per_node N``) is a rank of that grid with
+SPATIAL 1: rank r = d * MODEL + m, the JAX device array's ``reshape(data,
+model, spatial)``. The ranks of equal m form a data group, those of equal d
+a model group. A data group holds replicas of one shard of the model and
+its own rows of the global batch: DDP all-reduces the gradients over it,
+``sync_bn.SyncBatchNorm2d`` takes BatchNorm statistics over its global
+batch, the losses divide by its global count of kept pixels and
+``evaluate`` sums the confusion areas of its ranks. A model group holds one
+model split Megatron-style (``parallel/tensor.py``) and loads the same
+rows. Without a process group (one process, no ``torchrun``) every
+function here answers for one rank and nothing communicates.
 
-Tensor parallelism (``tp_rule``, ``tp_shard_params``, PARALLEL.MODEL) and
-spatial sharding (``spatial_batch_sharding``, PARALLEL.SPATIAL) are not
-ported: ROADMAP.md queue 1, M12b and M12c.
+Launch: ``torchrun --nproc_per_node 4 -m emrt_tpu_torch.train --config
+<yaml> PARALLEL.MODEL 2`` trains dp2 x tp2 (PARALLEL.DATA -1 or 2). On the
+CPU the tests run the ranks in processes over gloo
+(``tests/test_torch_tensor_parallel*.py``, ``parallel.launch.run_ranks``).
+Spatial sharding (``spatial_batch_sharding``, PARALLEL.SPATIAL) is not
+ported: ROADMAP.md queue 1, M12c.
 """
 from __future__ import annotations
 
@@ -57,6 +65,94 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     if is_distributed():
         dist.all_reduce(t)
     return t
+
+
+class _Grid:
+    """This rank's place in the (data, model) grid and the groups it joined."""
+
+    def __init__(self, model: int = 1):
+        world, r = world_size(), rank()
+        self.model_world, self.model_rank = model, r % model
+        self.data_world, self.data_rank = world // model, r // model
+        self.data_group = self.model_group = None   # None: the whole world, or no group
+        self.made = []
+        if model == 1:
+            return
+        # every rank makes every group, in one order
+        for d in range(self.data_world):
+            g = dist.new_group(list(range(d * model, (d + 1) * model)))
+            self.made.append(g)
+            if d == self.data_rank:
+                self.model_group = g
+        if self.data_world > 1:
+            for m in range(model):
+                g = dist.new_group(list(range(m, world, model)))
+                self.made.append(g)
+                if m == self.model_rank:
+                    self.data_group = g
+
+
+_grid = None
+
+
+def _current() -> _Grid:
+    return _grid if _grid is not None else _Grid()
+
+
+def data_rank() -> int:
+    """This rank's index in its data group (its shard of the batch)."""
+    return _current().data_rank
+
+
+def data_world() -> int:
+    """The ranks of a data group: the replicas of one model shard."""
+    return _current().data_world
+
+
+def model_rank() -> int:
+    """This rank's index in its model group (its shard of the model)."""
+    return _current().model_rank
+
+
+def model_world() -> int:
+    """PARALLEL.MODEL: the ranks a model is split over."""
+    return _current().model_world
+
+
+def data_group():
+    """The process group of this rank's data group (None: the default group)."""
+    return _current().data_group
+
+
+def model_group():
+    """The process group of this rank's model group (None where MODEL is 1)."""
+    return _current().model_group
+
+
+def all_reduce_data(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over this rank's data group, in place (no gradient)."""
+    if data_world() > 1:
+        dist.all_reduce(t, group=data_group())
+    return t
+
+
+@contextlib.contextmanager
+def model_parallel(model: int = 1):
+    """For the length of a ``with`` block, lay the ranks out as a grid of
+    ``world / model`` data ranks by ``model`` model ranks (PARALLEL.MODEL),
+    making its groups; they are destroyed on leaving the block. ``model``
+    must divide the world (``check_parallel``)."""
+    global _grid
+    if model < 1 or world_size() % model:
+        raise ValueError(f"PARALLEL.MODEL {model} does not divide the {world_size()} "
+                         f"process(es) started")
+    outer, _grid = _grid, _Grid(model)
+    try:
+        yield _grid
+    finally:
+        for g in _grid.made:
+            dist.destroy_process_group(g)
+        _grid = outer
 
 
 def local_world_size() -> int:
@@ -115,19 +211,24 @@ def build_kernels_once(model, device):
     dist.barrier()
 
 
-def check_parallel(config, world: int):
+def check_parallel(config, world: int, model=None):
     """Refuse a PARALLEL.* layout this port cannot run (the JAX package's
-    ``create_mesh`` axes): DATA is -1 (every rank) or the world size;
-    MODEL and SPATIAL stay 1."""
+    ``create_mesh`` axes): SPATIAL stays 1; MODEL divides the world, and
+    DATA is -1 or world / MODEL. Given the model, MODEL must also divide
+    every dimension it splits (``tensor.check_divides``), as JAX's
+    ``device_put`` refuses an uneven split."""
     p = config.PARALLEL
-    if p.MODEL > 1:
-        raise NotImplementedError(
-            f"PARALLEL.MODEL {p.MODEL}: tensor parallelism is not ported "
-            f"(ROADMAP.md queue 1, M12b)")
     if p.SPATIAL > 1:
         raise NotImplementedError(
             f"PARALLEL.SPATIAL {p.SPATIAL}: spatial sharding is not ported "
             f"(ROADMAP.md queue 1, M12c)")
-    if p.DATA not in (-1, world):
-        raise ValueError(f"PARALLEL.DATA {p.DATA} does not match the {world} "
-                         f"process(es) started (use -1 or {world})")
+    if p.MODEL < 1 or world % p.MODEL:
+        raise ValueError(f"PARALLEL.MODEL {p.MODEL} does not divide the {world} "
+                         f"process(es) started")
+    if p.DATA not in (-1, world // p.MODEL):
+        raise ValueError(f"PARALLEL.DATA {p.DATA} x PARALLEL.MODEL {p.MODEL} does not "
+                         f"match the {world} process(es) started (use -1 or "
+                         f"{world // p.MODEL})")
+    if model is not None:
+        from .tensor import check_divides
+        check_divides(model, p.MODEL)

@@ -1,7 +1,9 @@
-"""BatchNorm over the global batch of all ranks (counterpart of flax
+"""BatchNorm over the global batch of a data group (counterpart of flax
 ``BatchNorm`` under a batch sharded on the JAX mesh's ``data`` axis, whose
 statistics GSPMD reduces over the global array; reference: the
-``nn.SyncBatchNorm`` layers of semantic_segmentation).
+``nn.SyncBatchNorm`` layers of semantic_segmentation). The ranks of a model
+group hold the same rows, so the statistics are summed over the data group
+(``mesh.data_group``), not the world.
 
 flax takes the statistics in float32 in one pass, mean = E[x] and var =
 max(E[x^2] - E[x]^2, 0) (``use_fast_variance``), normalises with that biased
@@ -14,17 +16,16 @@ variance toward the unbiased variance (fault F2, ``models/layers.py``).
 
 ``convert_sync_batchnorm`` changes the class of every ``models/layers.py``
 BatchNorm in place, so parameters, buffers, state-dict keys and an optimizer
-built before it stay as they are. Outside training mode, or without a
-process group of more than one rank, the layers take exactly the path of
+built before it stay as they are. Outside training mode, or with a data
+group of one rank, the layers take exactly the path of
 ``BatchNorm2d`` / ``BatchNorm1d``.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from ..models.layers import BatchNorm1d, BatchNorm2d
-from .mesh import is_distributed
+from .mesh import all_reduce_data, data_world
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -41,7 +42,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         c = x.shape[1]
         stats = torch.cat([xf.sum(dims), xf.square().sum(dims),
                            xf.new_full((1,), x.numel() // c)])
-        dist.all_reduce(stats)
+        all_reduce_data(stats)
         n = stats[-1]
         mean = stats[:c] / n
         var = (stats[c:2 * c] / n - mean.square()).clamp(min=0.0)
@@ -66,7 +67,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         # the global sums of dxhat and dxhat * xhat: every rank's rows move
         # the statistics that every rank normalised with
         sums = torch.cat([grad_bias, grad_weight]) * w.repeat(2)
-        dist.all_reduce(sums)
+        all_reduce_data(sums)
         grad_x = (dy * w.view(view) - (sums[:c] / n).view(view)
                   - xhat * (sums[c:] / n).view(view)) * invstd.view(view)
         return grad_x.to(x.dtype), grad_weight.to(weight.dtype), grad_bias.to(weight.dtype), None
@@ -74,7 +75,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
 class _SyncMixin:
     def forward(self, x):
-        if not (self.training and self.track_running_stats and is_distributed()):
+        if not (self.training and self.track_running_stats and data_world() > 1):
             return super().forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)

@@ -29,6 +29,13 @@ outside the root, and it and ``torch.optim.Adadelta`` fold the decay into
 the gradient before the scaling: Adadelta and RMSProp step with the
 optimizers of this module (``OptaxAdadelta``, ``OptaxRMSProp``), whose
 rules are optax's.
+
+Over a model split by a model group (``parallel/tensor.py``) the step first
+sums over the group the gradients of the replicated parameters read on a
+head slice (and gives every other replicated one model rank 0's), then
+clips by the norm of the whole model's gradient: each shard's square summed
+over the group, each replicated tensor counted once, as optax's clip over
+GSPMD's split tree.
 """
 from __future__ import annotations
 
@@ -36,15 +43,20 @@ from typing import Callable
 
 import torch
 
+from ..parallel.tensor import gradient_sync
+
 LR_MULT_RULES = ("sampling_offsets", "reference_points")   # x0.1 learning rate
 LR_MULT = 0.1
 
 
-def clip_by_global_norm_(grads, max_norm: float):
+def clip_by_global_norm_(grads, max_norm: float, norm=None):
     """Scale ``grads`` in place to a global L2 norm of at most ``max_norm``
-    (optax.clip_by_global_norm). Returns the norm before clipping, a device
-    scalar: nothing here waits for the device."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    (optax.clip_by_global_norm); ``norm``, where given, is the norm of the
+    whole gradient (a split model's, ``GradientSync.global_norm``). Returns
+    the norm before clipping, a device scalar: nothing here waits for the
+    device."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     torch._foreach_mul_(grads, (max_norm / norm).clamp(max=1.0))
     return norm
 
@@ -65,24 +77,31 @@ class _ScheduledOptimizer:
     learning-rate multiplier (base, x0.1, decoder, in that order), with the
     schedule's lr per step. ``step()`` clips, updates and advances
     ``step_count``, the number of updates made, which is also the
-    schedule's argument (optax's count)."""
+    schedule's argument (optax's count). ``names`` are the parameters'
+    names in the torch optimizer's order; ``grad_norm`` is the last step's
+    gradient norm before clipping (a device scalar; None without a clip).
+    ``sync`` (``parallel.tensor.GradientSync``) is given for a split
+    model."""
 
     state_key = ""
 
     def __init__(self, named_parameters, schedule: Callable[[int], float], make,
                  grad_clip: float | None = None, decoder_prefixes=(),
-                 decoder_lr_coef: float = 1.0):
+                 decoder_lr_coef: float = 1.0, sync=None):
         groups = {}
         for name, p in named_parameters:
             if p.requires_grad:
                 mult = lr_multiplier(name, decoder_prefixes, decoder_lr_coef)
                 kind = "slow" if mult == LR_MULT else "base" if mult == 1.0 else "decoder"
-                groups.setdefault(kind, (mult, []))[1].append(p)
-        groups = [{"params": groups[k][1], "lr_mult": groups[k][0]}
-                  for k in ("base", "slow", "decoder") if k in groups]
+                groups.setdefault(kind, (mult, []))[1].append((name, p))
+        groups = [{"params": [p for _, p in groups[k][1]], "names": [n for n, _ in groups[k][1]],
+                   "lr_mult": groups[k][0]} for k in ("base", "slow", "decoder") if k in groups]
         self.params = [p for g in groups for p in g["params"]]
+        self.names = [n for g in groups for n in g.pop("names")]
         self.schedule = schedule
         self.grad_clip = grad_clip
+        self.sync = sync
+        self.grad_norm = None
         self.step_count = 0
         self.optimizer = make(groups, schedule(0))
 
@@ -91,9 +110,14 @@ class _ScheduledOptimizer:
 
     @torch.no_grad()
     def step(self):
+        if self.sync is not None:
+            self.sync.reduce_(self.names, self.params)
         if self.grad_clip:
-            grads = [p.grad for p in self.params if p.grad is not None]
-            clip_by_global_norm_(grads, float(self.grad_clip))
+            have = [(n, p.grad) for n, p in zip(self.names, self.params) if p.grad is not None]
+            grads = [g for _, g in have]
+            norm = None if self.sync is None else self.sync.global_norm(
+                grads, self.sync.is_split([n for n, _ in have]))
+            self.grad_norm = clip_by_global_norm_(grads, float(self.grad_clip), norm)
         lr = self.schedule(self.step_count)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_mult"]
@@ -213,12 +237,15 @@ class RMSProp(_ScheduledOptimizer):
 
 def get_optimizer(config, model: torch.nn.Module, schedule: Callable[[int], float]):
     """Build the optimizer of config.TRAIN.OPTIMIZER over ``model``'s
-    parameters, TRAIN.DECODER_LR_COEF on its ``decoder_lr_prefixes``."""
+    parameters, TRAIN.DECODER_LR_COEF on its ``decoder_lr_prefixes``; over a
+    split model (``parallel.tensor.split_model_``, done before this) with the
+    model group's gradient sum and norm."""
     opt_cfg = config.TRAIN.OPTIMIZER
     name = opt_cfg.NAME.lower()
     common = dict(weight_decay=float(opt_cfg.WEIGHT_DECAY or 0.0), grad_clip=opt_cfg.GRAD_CLIP,
                   decoder_prefixes=tuple(getattr(model, "decoder_lr_prefixes", ())),
-                  decoder_lr_coef=float(getattr(config.TRAIN, "DECODER_LR_COEF", 1.0)))
+                  decoder_lr_coef=float(getattr(config.TRAIN, "DECODER_LR_COEF", 1.0)),
+                  sync=gradient_sync(model))
     if name == "sgd":
         return SGD(model.named_parameters(), schedule, momentum=opt_cfg.MOMENTUM,
                    nesterov=opt_cfg.NESTEROV, **common)

@@ -17,15 +17,24 @@ already consumed. MODEL.PRETRAINED takes a ``.pt`` file of this package or a
 reference ``.pdparams`` (a whole model, or a prefix-less ImageNet ResNet for
 the backbone). The model's FLOPs and parameters are reported at the end.
 
-Under ``torchrun`` (WORLD_SIZE > 1) it trains data-parallel, as the JAX
-package does over the mesh's ``data`` axis (``train.py:55-152``): one
-process a GPU (``--device cuda`` is ``cuda:LOCAL_RANK``), DATA.BATCH_SIZE
-rows a rank from the loader's shard of the rank, BatchNorm over the global
-batch (``parallel.convert_sync_batchnorm``), DDP's averaged gradients, the
-losses' global mean; the seed of a step folds in the rank. Evaluation is
-sharded over the ranks, rank 0 logs, writes the checkpoints and counts the
-FLOPs. PARALLEL.MODEL and PARALLEL.SPATIAL > 1 are refused
-(``parallel.check_parallel``).
+Under ``torchrun`` (WORLD_SIZE > 1) it trains over the JAX package's
+``(data, model)`` mesh (``train.py:55-152``): one process a GPU
+(``--device cuda`` is ``cuda:LOCAL_RANK``), the ranks laid out as
+PARALLEL.DATA x PARALLEL.MODEL (``parallel.mesh.model_parallel``). With
+PARALLEL.MODEL = T > 1 the transformer's projections are split Megatron-style
+over each model group of T ranks (``parallel.tensor.split_model_``: the
+deformable attention and the decoder's self-attention by heads, the FFNs by
+hidden units), as ``tp_shard_params`` places them. Each data group trains
+data-parallel: DATA.BATCH_SIZE rows a rank from the loader's shard of its
+data rank (the ranks of a model group load the same rows), BatchNorm over
+the data group's global batch (``parallel.convert_sync_batchnorm``), DDP's
+gradients averaged over the data group, the losses' global mean; the seed
+of a step folds in the data rank. Evaluation is sharded over the data
+ranks, rank 0 logs, writes the checkpoints (whole tensors, gathered over
+the model group) and counts the FLOPs and parameters of the whole model.
+PARALLEL.SPATIAL > 1 is refused (``parallel.check_parallel``). Tensor
+parallelism: ``torchrun --nproc_per_node 4 -m emrt_tpu_torch.train
+--config <yaml> PARALLEL.MODEL 2`` (dp2 x tp2).
 """
 from __future__ import annotations
 
@@ -41,9 +50,11 @@ from ..data import DataLoader, get_dataset, get_transforms
 from ..inference import build_val_transforms, evaluate
 from ..losses import get_loss_function
 from ..models import get_model
-from ..parallel import (check_parallel, convert_sync_batchnorm, distributed, is_main, rank,
+from ..parallel import (check_parallel, convert_sync_batchnorm, distributed, is_main,
                         world_size)
-from ..parallel.mesh import all_reduce_sum, build_kernels_once
+from ..parallel.mesh import (all_reduce_data, build_kernels_once, data_group, data_rank,
+                             data_world, model_parallel)
+from ..parallel.tensor import split_for_the_group
 from ..solver import get_optimizer, get_scheduler
 from ..utils import TimeAverager, Timer, calculate_eta, logger
 from ..utils.checkpoint import CheckpointManager, load_weights_auto
@@ -69,7 +80,8 @@ def step_seed(seed: int, step: int, rank: int = 0, world: int = 1) -> int:
     """torch's seed for train step ``step``: the counterpart of the JAX step's
     ``fold_in(rng, step)``, so the dropout masks depend on (SEED, step)
     alone. The JAX step draws one stream over the global batch; under data
-    parallelism each rank's rows draw their own, from (SEED, step, rank)."""
+    parallelism each data rank's rows draw their own, from (SEED, step,
+    rank); the ranks of a model group draw alike."""
     key = (seed, step) if world == 1 else (seed, step, rank)
     return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
 
@@ -88,12 +100,13 @@ def load_pretrained(model, path: str):
 
 
 def make_train_loader(config, dataset, device) -> DataLoader:
-    """DATA.BATCH_SIZE samples a step from this rank's shard of the sampler:
-    the JAX loader's per-process shard (``emrt_tpu/data/loader.py:21-51``),
-    so the global batch is the ranks' batches in rank order."""
+    """DATA.BATCH_SIZE samples a step from this data rank's shard of the
+    sampler: the JAX loader's per-process shard
+    (``emrt_tpu/data/loader.py:21-51``), so the global batch is the data
+    ranks' batches in order."""
     return DataLoader(dataset, config.DATA.BATCH_SIZE, iterations=config.TRAIN.ITERS,
                       seed=config.SEED, num_workers=config.DATA.NUM_WORKERS,
-                      device=device, shard_index=rank(), num_shards=world_size())
+                      device=device, shard_index=data_rank(), num_shards=data_world())
 
 
 def main(argv=None) -> dict:
@@ -109,34 +122,38 @@ def main(argv=None) -> dict:
         config.TRAIN.ITERS = args.iters
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (use --device cpu)")
-    with distributed(args.device) as device:
+    with distributed(args.device) as device, model_parallel(config.PARALLEL.MODEL):
         return _train(args, config, device)
 
 
 def _train(args, config, device) -> dict:
-    world, this_rank = world_size(), rank()
-    check_parallel(config, world)
+    world, n_data = world_size(), data_world()
     random.seed(config.SEED)
     np.random.seed(config.SEED)
     torch.manual_seed(config.SEED)
     model = get_model(config, device=device)
+    check_parallel(config, world, model)
     if config.MODEL.PRETRAINED:
         load_pretrained(model, config.MODEL.PRETRAINED)
+    n_params = sum(p.numel() for p in model.parameters())   # the whole model's
+    logger.info(f"device: {device} ranks: {world} model params: {n_params / 1e6:.2f}M")
+    build_kernels_once(model, device)
+    # the FLOPs/params report (reference train.py:239-260), logged at the end,
+    # counts the whole model: taken before the split
+    cost = forward_cost(model, (1, 3, *config.DATA.CROP_SIZE), device) if is_main() else None
+    split_for_the_group(config, model)
     if world > 1:
         convert_sync_batchnorm(model)
-        build_kernels_once(model, device)
     schedule = get_scheduler(config)
     optimizer = get_optimizer(config, model, schedule)
     loss_fn = get_loss_function(config)
-    n_params = sum(p.numel() for p in model.parameters())
-    logger.info(f"device: {device} ranks: {world} model params: {n_params / 1e6:.2f}M")
 
     train_dataset = get_dataset(config, get_transforms(config), mode="train")
     val_dataset = get_dataset(config, build_val_transforms(config), mode="val")
     batch_size = config.DATA.BATCH_SIZE
     loader = make_train_loader(config, train_dataset, device)
     logger.info(f"train samples: {len(train_dataset)} val samples: "
-                f"{len(val_dataset)} batch: {batch_size} a rank, {batch_size * world} "
+                f"{len(val_dataset)} batch: {batch_size} a data rank, {batch_size * n_data} "
                 f"in all")
 
     ckpt = CheckpointManager(config.SAVE_DIR, config.KEEP_CHECKPOINT_MAX)
@@ -145,12 +162,12 @@ def _train(args, config, device) -> dict:
         start_iter = ckpt.restore(model, optimizer)
         loader.start_iter = start_iter
     trained = model
-    if world > 1:
+    if n_data > 1:
         # BatchNorm statistics are equal on every rank (SyncBatchNorm):
         # nothing to broadcast
         trained = DistributedDataParallel(
             model, device_ids=[device] if device.type == "cuda" else None,
-            broadcast_buffers=False,
+            broadcast_buffers=False, process_group=data_group(),
             find_unused_parameters=getattr(model, "ddp_find_unused_parameters", False))
     train_step = make_train_step(trained, loss_fn, optimizer)
     summary = {"start_iter": start_iter, "last_iter": start_iter, "steps": 0,
@@ -168,17 +185,17 @@ def _train(args, config, device) -> dict:
     for batch in loader:
         reader_cost.record(timer.restart())
         it += 1
-        torch.manual_seed(step_seed(config.SEED, it, this_rank, world))
+        torch.manual_seed(step_seed(config.SEED, it, data_rank(), n_data))
         window_losses.append(train_step(batch))
         summary["steps"] += 1
         log_now = it % config.LOGGING_INFO_FREQ == 0 or it == config.TRAIN.ITERS
         if log_now and device.type == "cuda":
             torch.cuda.synchronize(device)
-        batch_cost.record(timer.restart(), num_samples=batch_size * world)
+        batch_cost.record(timer.restart(), num_samples=batch_size * n_data)
 
         if log_now:
-            # each rank's loss is world x its share of the global batch's
-            avg_loss = (all_reduce_sum(torch.stack(window_losses).mean()) / world).item()
+            # each rank's loss is N x its share of its data group's global batch
+            avg_loss = (all_reduce_data(torch.stack(window_losses).mean()) / n_data).item()
             window_losses = []
             summary["losses"].append(avg_loss)
             eta = calculate_eta(config.TRAIN.ITERS - it, batch_cost.get_average())
@@ -201,8 +218,7 @@ def _train(args, config, device) -> dict:
             ckpt.save_best(model, result["miou"])
         timer.restart()
     summary["last_iter"] = it
-    if is_main():     # final FLOPs/params report (reference train.py:239-260)
-        cost = forward_cost(model, (1, 3, *config.DATA.CROP_SIZE), device)
+    if cost is not None:
         logger.info(f"model cost: {format_cost(cost)}")
     logger.info(f"training done at iter {it}; best mIoU {ckpt.best_miou:.4f}")
     return summary

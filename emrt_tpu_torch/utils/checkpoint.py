@@ -12,7 +12,11 @@ evaluation overwrite a better one from before the restart. Every file is
 written to a temporary name first and then renamed into place. Under data
 parallelism rank 0 writes (the model without DDP's wrapper, so its keys
 have no ``module.`` prefix and one process reads them) while the other
-ranks wait for it, and every rank restores.
+ranks wait for it, and every rank restores. A model split over a model
+group (``parallel/tensor.py``) is saved whole: its split tensors and their
+optimizer state are gathered over the group first, so a file holds one
+process's tensors under one process's names, and a restore cuts them to
+the rank's shard, for any layout.
 ``load_weights_auto`` reads either file, or a reference ``.pdparams``, into
 a model: ``val``, ``predict`` and MODEL.PRETRAINED load through it. A ViT
 position table of another token count (weights trained at another crop) is
@@ -30,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.mesh import barrier, is_main
+from ..parallel.tensor import (gather_model_state, gather_optimizer_state, shard_model_state,
+                               shard_optimizer_state)
 from .logger import logger
 
 _CKPT = re.compile(r"iter_(\d+)\.pt$")
@@ -72,9 +78,11 @@ class CheckpointManager:
         return os.path.join(self.ckpt_dir, f"iter_{step}.pt")
 
     def save(self, step: int, model, optimizer) -> None:
+        """Every rank calls this (a split model's gather is a collective)."""
+        state = {"model": gather_model_state(model),
+                 "optimizer": gather_optimizer_state(optimizer, model), "step": step}
         if is_main():
-            _save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                   "step": step}, self.path(step))
+            _save(state, self.path(step))
             for old in self.steps()[:-self.max_to_keep]:
                 os.remove(self.path(old))
         barrier()
@@ -86,8 +94,9 @@ class CheckpointManager:
         if miou <= self.best_miou:
             return False
         self.best_miou = miou
+        state = gather_model_state(model)
         if is_main():
-            _save(model.state_dict(), os.path.join(self.save_dir, "best_model.pt"))
+            _save(state, os.path.join(self.save_dir, "best_model.pt"))
             _save({"best_miou": miou}, self._best_meta)
         barrier()
         logger.info(f"best model saved (mIoU {miou:.4f})")
@@ -95,13 +104,14 @@ class CheckpointManager:
 
     def restore(self, model, optimizer, step: int | None = None) -> int:
         """Load the checkpoint of ``step`` (default: the latest) into
-        ``model`` and ``optimizer``; returns its step, 0 if there is none."""
+        ``model`` and ``optimizer`` (cut to the rank's shard of a split
+        model); returns its step, 0 if there is none."""
         step = self.latest_step() if step is None else step
         if step is None:
             return 0
         state = torch.load(self.path(step), map_location="cpu", weights_only=True)
-        model.load_state_dict(state["model"])
-        optimizer.load_state_dict(state["optimizer"])
+        model.load_state_dict(shard_model_state(model, state["model"]))
+        optimizer.load_state_dict(shard_optimizer_state(optimizer, model, state["optimizer"]))
         logger.info(f"resumed from checkpoint at iter {step}")
         return int(state["step"])
 

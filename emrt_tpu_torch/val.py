@@ -12,7 +12,12 @@ or a reference ``.pdparams``, which must leave no tensor at init.
 the per-class table and the model's FLOPs and parameters. Under ``torchrun``
 the evaluation is sharded over the ranks (the repo's ``val.py:54-62``; one
 GPU a rank, ``cuda:LOCAL_RANK``), every rank gets the whole result and rank
-0 logs it and counts the FLOPs.
+0 logs it and counts the FLOPs. With PARALLEL.MODEL = T > 1 the loaded model
+is split over model groups of T ranks as ``train`` splits it, and the
+evaluation is sharded over the data ranks, as ``train``'s evaluation runs
+(the JAX ``val.py:53-61`` builds the mesh and leaves the parameters
+replicated: the same numbers): ``torchrun --nproc_per_node 4 -m
+emrt_tpu_torch.val --config <yaml> --model_path best_model.pt PARALLEL.MODEL 2``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from .data import get_dataset
 from .inference import build_val_transforms, evaluate
 from .models import get_model
 from .parallel import check_parallel, distributed, is_main, world_size
-from .parallel.mesh import build_kernels_once
+from .parallel.mesh import build_kernels_once, model_parallel
+from .parallel.tensor import split_for_the_group
 from .utils import logger
 from .utils.checkpoint import load_weights_auto
 from .utils.flops import format_cost, forward_cost
@@ -52,14 +58,14 @@ def main(argv=None):
     config = update_config(get_config(), args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (use --device cpu)")
-    with distributed(args.device) as device:
+    with distributed(args.device) as device, model_parallel(config.PARALLEL.MODEL):
         return _validate(args, config, device)
 
 
 def _validate(args, config, device):
-    check_parallel(config, world_size())
     torch.manual_seed(config.SEED)
     model = get_model(config, device=device).eval()
+    check_parallel(config, world_size(), model)
     if args.model_path:
         report = load_weights_auto(model, args.model_path)
         if report["missing"]:
@@ -70,6 +76,13 @@ def _validate(args, config, device):
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"device: {device} ranks: {world_size()} model params: {n_params / 1e6:.2f}M")
     build_kernels_once(model, device)
+    cost = None
+    if is_main():     # FLOPs / params (reference val.py:211-230) of the whole model
+        size = config.VAL.IMAGE_BASE_SIZE or config.DATA.CROP_SIZE[0]
+        if isinstance(size, int):
+            size = (size, size)
+        cost = forward_cost(model, (1, 3, *size), device)
+    split_for_the_group(config, model)
 
     forwards = 0
 
@@ -92,12 +105,7 @@ def _validate(args, config, device):
                     f"{result['class_f1'][c]:>8.4f}")
     logger.info(f"final mIoU: {result['miou']:.4f} Acc: {result['acc']:.4f} "
                 f"Kappa: {result['kappa']:.4f} mF1: {result['mf1']:.4f}")
-    cost = None
-    if is_main():     # FLOPs / params (reference val.py:211-230)
-        size = config.VAL.IMAGE_BASE_SIZE or config.DATA.CROP_SIZE[0]
-        if isinstance(size, int):
-            size = (size, size)
-        cost = forward_cost(model, (1, 3, *size), device)
+    if cost is not None:
         logger.info(f"model cost: {format_cost(cost)}")
     result["forwards"], result["cost"] = forwards, cost
     return result

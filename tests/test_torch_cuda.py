@@ -309,3 +309,31 @@ def test_kernels_at_the_yamls_level_shapes(device, levels, query, plan_bs, dtype
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert (g.float() - w.float()).abs().max().item() <= _tol(w, dtype)
+
+
+@pytest.mark.parametrize("loc_set", ["random", "out of bounds", "on the grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan_bs", [32, 8])
+@pytest.mark.parametrize("query", ["encoder", "decoder"])
+@pytest.mark.parametrize("heads", [4, 2])
+def test_kernels_at_a_tp_ranks_head_counts(device, heads, query, plan_bs, dtype, loc_set):
+    """A rank of a model group of 2 or 4 runs the flagship's calls at 4 or
+    2 heads, where the plans split each (b, h) over more blocks (K1 at bs 8,
+    2 heads: 16 in bf16; the backward: 6, through the zeroed f32 buffer)."""
+    len_q = 1344 if query == "encoder" else 110
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    fwd = deformable_cuda.fwd_plan(LEVELS, 32, dtype, plan_bs, heads, len_q, n_sms)
+    bwd = deformable_cuda.bwd_plan(LEVELS, 32, plan_bs, heads, len_q, n_sms)
+    value, loc, attn = _inputs(device, dtype, loc_set, bs=plan_bs, len_q=len_q, heads=heads)
+    grad_out = torch.randn((plan_bs, len_q, heads * 32), device=device).to(dtype)
+    got = [deformable_cuda.ms_deform_attn_fwd(value, LEVELS, loc, attn, plan=fwd),
+           *deformable_cuda.ms_deform_attn_bwd(value, LEVELS, loc, attn, grad_out, plan=bwd)]
+    want = [deformable_attention_core(value, LEVELS, loc, attn),
+            *plain_grads(value, loc, attn, grad_out)]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if loc_set == "out of bounds":
+            assert not g.any()
+        else:
+            assert (g.float() - w.float()).abs().max().item() <= _tol(w, dtype)

@@ -318,13 +318,13 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("batch", [32, 8, 2])
 @pytest.mark.parametrize("shape", chip_smoke.SHAPES, ids=[s[0] for s in chip_smoke.SHAPES])
-def test_bwd_plan_fits_shared_memory(shape, batch):
+def test_bwd_plan_fits_shared_memory(shape, batch, heads=8):
     """At every call shape the smoke run drives: the levels' f32 gV tiles in
     shared memory sit side by side within 227 KB, smallest levels first (the
     same for f32 and bf16 values: the tiles are f32 for both), and the
     query tiles cover Lq, split only while (b, h) are fewer than the SMs."""
-    _, levels, len_q = shape
-    plan = deformable_cuda.bwd_plan(levels, 32, batch, 8, len_q)
+    _, levels, len_q = shape[:3]
+    plan = deformable_cuda.bwd_plan(levels, 32, batch, heads, len_q)
     assert plan.smem_bytes <= 227 * 1024 == deformable_cuda.SMEM_PER_BLOCK
     spans = sorted((off * 4, off * 4 + h * w * 32 * 4)
                    for off, (h, w) in zip(plan.smem_offsets, levels) if off >= 0)
@@ -334,7 +334,7 @@ def test_bwd_plan_fits_shared_memory(shape, batch):
     kept = [h * w for off, (h, w) in zip(plan.smem_offsets, levels) if off >= 0]
     assert not left_out or min(left_out) >= max(kept)
     assert plan.splits * plan.q_tile >= len_q > (plan.splits - 1) * plan.q_tile
-    assert plan.splits == 1 or batch * 8 * plan.splits <= deformable_cuda.H100_SMS
+    assert plan.splits == 1 or batch * heads * plan.splits <= deformable_cuda.H100_SMS
 
 
 def test_bwd_plan_sends_the_64x64_level_to_global_memory():
@@ -380,22 +380,22 @@ DTYPES = [torch.float32, torch.bfloat16]
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("batch", [32, 8, 2])
 @pytest.mark.parametrize("shape", chip_smoke.SHAPES, ids=[s[0] for s in chip_smoke.SHAPES])
-def test_fwd_plan_fits_shared_memory(shape, batch, dtype):
+def test_fwd_plan_fits_shared_memory(shape, batch, dtype, heads=8):
     """At every call shape the smoke run drives: K1's staged value slabs sit
     side by side within 227 KB, smallest levels first; blocks_per_sm of them
     fit an SM's 228 KB; the query tiles cover Lq, split only while that fills
     more of the card's blocks, or in 2 where a level is read from global
     memory; a plan that stages nothing has tiles of under 128 queries that,
     staged, would not fit the card in one wave."""
-    _, levels, len_q = shape
-    plan = deformable_cuda.fwd_plan(levels, 32, dtype, batch, 8, len_q)
-    staged = deformable_cuda.fwd_plan(levels, 32, dtype, batch, 8, len_q, stage=True)
+    _, levels, len_q = shape[:3]
+    plan = deformable_cuda.fwd_plan(levels, 32, dtype, batch, heads, len_q)
+    staged = deformable_cuda.fwd_plan(levels, 32, dtype, batch, heads, len_q, stage=True)
     assert staged.q_tile == plan.q_tile
     if not plan.staged:
         assert plan.smem_offsets == (-1,) * len(levels) and plan.smem_bytes == 0
         assert plan.blocks_per_sm == 2 and plan.q_tile < deformable_cuda.FWD_MIN_STAGE_QUERIES
         slots = deformable_cuda.H100_SMS * staged.blocks_per_sm
-        assert batch * 8 * plan.splits > slots
+        assert batch * heads * plan.splits > slots
         plan = staged
     size = dtype.itemsize
     assert plan.smem_bytes <= deformable_cuda.SMEM_PER_BLOCK
@@ -413,7 +413,7 @@ def test_fwd_plan_fits_shared_memory(shape, batch, dtype):
     assert plan.splits * plan.q_tile >= len_q > (plan.splits - 1) * plan.q_tile
     slots = deformable_cuda.H100_SMS * plan.blocks_per_sm
     global_level = min(plan.smem_offsets) < 0
-    assert plan.splits == 1 or batch * 8 * plan.splits <= slots or (
+    assert plan.splits == 1 or batch * heads * plan.splits <= slots or (
         global_level and plan.splits == 2)
     assert plan.splits >= 2 or not global_level
     assert plan.ints() == (plan.q_tile, plan.smem_bytes, *plan.smem_offsets)
@@ -568,3 +568,36 @@ def test_kernel_wrapper_refuses_a_level_past_32_bit_offsets():
     attn = torch.empty((1, 3, 8, 1, 2), device="meta")
     with pytest.raises(ValueError, match="below 2\\^31"):
         deformable_cuda.ms_deform_attn_fwd(value, shapes, loc, attn)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [32, 8])
+@pytest.mark.parametrize("shape", chip_smoke.TP_SHAPES, ids=[s[0] for s in chip_smoke.TP_SHAPES])
+def test_plans_fit_at_a_tp_ranks_head_counts(shape, batch, dtype):
+    """The invariants of both plans at the 4 and 2 heads a rank of a model
+    group of 2 or 4 runs the flagship's calls at (``chip_smoke.TP_SHAPES``)."""
+    heads = shape[3]
+    test_fwd_plan_fits_shared_memory(shape, batch, dtype, heads)
+    test_bwd_plan_fits_shared_memory(shape, batch, heads)
+
+
+# (heads, batch, Lq) -> (K1's splits in f32, in bf16; the backward's splits)
+TP_SPLITS = {(4, 32, 1344): (1, 2, 1), (2, 32, 1344): (2, 4, 2),
+             (4, 8, 1344): (4, 8, 4), (2, 8, 1344): (8, 16, 6),
+             (4, 32, 110): (1, 2, 1), (2, 32, 110): (2, 2, 1),
+             (4, 8, 110): (2, 2, 1), (2, 8, 110): (2, 2, 1)}
+
+
+@pytest.mark.parametrize("heads, batch, len_q", list(TP_SPLITS))
+def test_plans_split_a_tp_ranks_fewer_heads_over_more_blocks(heads, batch, len_q):
+    """Fewer (b, h) a call, more blocks a (b, h): K1 fills the card's block
+    slots (two an SM in bf16, one in f32) up to ceil(Lq / 64) blocks, the
+    backward the 132 SMs up to ceil(Lq / 256), adding gV through the f32
+    buffer once it splits."""
+    f32, bf16, bwd = TP_SPLITS[heads, batch, len_q]
+    assert deformable_cuda.fwd_plan(FLAGSHIP, 32, torch.float32, batch, heads,
+                                    len_q).splits == f32
+    assert deformable_cuda.fwd_plan(FLAGSHIP, 32, torch.bfloat16, batch, heads,
+                                    len_q).splits == bf16
+    plan = deformable_cuda.bwd_plan(FLAGSHIP, 32, batch, heads, len_q)
+    assert plan.splits == bwd and plan.accumulate == (bwd > 1)
