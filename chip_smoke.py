@@ -126,11 +126,32 @@ four; else the phase prints that the NCCL leg was not run. (e) ``torchrun
 PARALLEL.MODEL 2`` for two iterations. Phases 1 and 3a also hold the kernels
 at a TP rank's 4 and 2 heads at the flagship's encoder and decoder calls
 (TP_SHAPES, bs 32 and 8), and ``time_fwd`` / ``time_bwd`` time them at bs 32.
+Phase 9 drives spatial parallelism (``emrt_tpu_torch.parallel.spatial``,
+PARALLEL.SPATIAL) on the flagship at full width and depth with seeded
+weights, each rank a process of its own on the one card over gloo. (a) One
+float32 dp1 x sp2 step of phase 7's 8 rows, each rank on 128 of their 256
+image rows, dropout 0.1 with torch seeded alike, against one process's
+step (``dp_reference`` with that dropout): the loss within DP_LOSS_RTOL,
+the gradients within TRAIN_BN_GRAD_RTOL (L2), the running statistics
+within 1e-4 x max, the gradient norm before the clip within SP_NORM_RTOL,
+and the parameters and buffers bitwise equal on both ranks after it; (b)
+6 K1 and 6 backward launches on each rank, at 8 heads and the full 1,344 /
+110 queries (the encoder-decoder runs whole on every rank); (c)
+``torchrun --standalone --nproc_per_node 2 -m emrt_tpu_torch.train
+--device cuda ... PARALLEL.SPATIAL 2`` for two iterations, then
+one-process ``val.main`` on its best_model.pt within 1e-3 of its mIoU; (d)
+bf16 steps of 2 x 1024^2 crops (where activations dominate), one process
+against each dp1 x sp2 rank, each in fresh processes: ms a step, peak
+memory, the memory of the weights, gradients and optimizer state, and the
+activations each region of the model adds in the forward (a memory figure:
+the ranks share one card over gloo). Where there are two cards, (a), (b)
+and (d) run again over NCCL, a card a rank.
 
 Any failed check raises, and the script then exits non-zero without the
 final line. ``python3 chip_smoke.py --tp-step`` runs phase 0 and phase 8's
-dp1 x tp2 step alone, ``--train-step`` phase 0 and phase 3c's timing of one
-process's bf16 bs-8 train step alone; neither prints the final lines. It prints its own time, then a JSON object describing each
+dp1 x tp2 step alone, ``--sp-step`` phase 0 and phase 9 without (c),
+``--train-step`` phase 0 and phase 3c's timing of one process's bf16 bs-8
+train step alone; none prints the final lines. It prints its own time, then a JSON object describing each
 kernel on the second-to-last line; the last line is {"ok": true, "device":
 {...}}. Nothing here imports JAX.
 """
@@ -1620,11 +1641,12 @@ def _dp_step(model, cfg, device):
     return make_train_step(ddp, get_loss_function(cfg), optimizer)
 
 
-def dp_reference(path):
+def dp_reference(path, dropout=0.0):
     """(a)'s global batch of 8 and one process's float32 step on it (dropout
-    0, BatchNorm on batch statistics, through the kernels), saved at ``path``
-    with the initial weights, its gradients (clipped), running statistics
-    and gradient norm before the clip; phase 8 takes it too. Rank 1's rows differ from rank 0's in what
+    ``dropout``, torch seeded with SP_SEED before it; BatchNorm on batch
+    statistics, through the kernels), saved at ``path`` with the initial
+    weights, its gradients (clipped), running statistics and gradient norm
+    before the clip; phases 8 and 9 take it too (phase 9 with dropout). Rank 1's rows differ from rank 0's in what
     a data-parallel fault would weigh wrongly: their images have another mean
     and scale (BatchNorm statistics taken per rank), their labels other
     classes, and 80-100% of their pixels are ignored (a mean of the ranks'
@@ -1639,7 +1661,7 @@ def dp_reference(path):
     torch.manual_seed(0)
     model = get_model(cfg, device="cuda", dtype=torch.float32)
     init = {k: v.cpu().clone() for k, v in model.state_dict().items()}
-    _set_kernel_and_dropout(model, dropout=0.0)
+    _set_kernel_and_dropout(model, dropout=dropout)
     gen = torch.Generator(device="cuda").manual_seed(7)
     n, (h, w) = DP_WORLD * DP_BS, cfg.DATA.CROP_SIZE
     half = cfg.DATA.NUM_CLASSES // 2
@@ -1652,6 +1674,7 @@ def dp_reference(path):
     batch = {"image": images, "label": torch.where(ignored, 255, labels)}
     optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
     step = make_train_step(model, get_loss_function(cfg), optimizer)
+    torch.manual_seed(SP_SEED)
     loss = step(batch).item()
     torch.save({"init": init, "loss": loss, "batch": {k: v.cpu() for k, v in batch.items()},
                 "norm": optimizer.grad_norm.item(),
@@ -1952,19 +1975,23 @@ TP_REFERENCE_RTOL, TP_SPREAD_TOL, TP_SPREAD_FLOOR = 1e-2, 1e-3, 1e-6
 TP_TORCHRUN_ITERS = 2
 
 
-def _record_heads(seen: set):
+def _record_heads(seen: set, queries: bool = False):
     """Wrap the kernels' wrappers to add ("fwd" / "bwd", heads) to ``seen``
-    at each call (the launch counts stay the wrappers' own)."""
+    at each call, ("fwd" / "bwd", heads, queries) with ``queries`` (the
+    launch counts stay the wrappers' own)."""
     from emrt_tpu_torch.ops import deformable_cuda
     fwd, bwd = deformable_cuda.ms_deform_attn_fwd, deformable_cuda.ms_deform_attn_bwd
 
-    def fwd_heads(value, *a, **k):
-        seen.add(("fwd", value.shape[2]))
-        return fwd(value, *a, **k)
+    def call(kind, value, loc):
+        return (kind, value.shape[2], loc.shape[1]) if queries else (kind, value.shape[2])
 
-    def bwd_heads(value, *a, **k):
-        seen.add(("bwd", value.shape[2]))
-        return bwd(value, *a, **k)
+    def fwd_heads(value, shapes, loc, *a, **k):
+        seen.add(call("fwd", value, loc))
+        return fwd(value, shapes, loc, *a, **k)
+
+    def bwd_heads(value, shapes, loc, *a, **k):
+        seen.add(call("bwd", value, loc))
+        return bwd(value, shapes, loc, *a, **k)
 
     deformable_cuda.ms_deform_attn_fwd, deformable_cuda.ms_deform_attn_bwd = fwd_heads, bwd_heads
 
@@ -2325,6 +2352,307 @@ def phase8(card):
     return launches
 
 
+# ------------------------------------------------------------- phase 9: SP
+
+SP_WORLD = 2                             # dp1 x sp2: two ranks, 128 image rows each
+SP_DROPOUT, SP_SEED = 0.1, 11            # (a): dropout on, torch seeded alike everywhere
+# (a): the gradient norm before the clip against one process's: float32
+# rounding through BatchNorm on batch statistics (a 1e-7 perturbation moved
+# the gradients by 8.8e-4, phase 3b); dropout 0.1 moved the CPU tests' tiny
+# model's norm 2e-4
+SP_NORM_RTOL = 1e-3
+# (b): the kernels' calls at the flagship's 8 heads and full token counts
+SP_CALLS = [("bwd", HEADS, 110), ("bwd", HEADS, 1344), ("fwd", HEADS, 110),
+            ("fwd", HEADS, 1344)]
+# (d): where activations dominate: 1024^2 crops, 2 a step (bf16, output stride
+# 32, so 2 divides the 32 rows at stride 32)
+SP_LARGE_CROP, SP_LARGE_BS, SP_TIMED = 1024, 2, 3
+SP_TORCHRUN_ITERS = 2
+
+
+def _sp_step(cfg, device, init=None, dropout=None):
+    """The flagship sharded over this rank's spatial group as the train CLI
+    shards it (``shard_model_``, SyncBatchNorm, DDP over the gradient group)
+    and its train step. Returns (model, optimizer, step)."""
+    import torch
+    from torch.nn.parallel import DistributedDataParallel
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.parallel import convert_sync_batchnorm
+    from emrt_tpu_torch.parallel.mesh import gradient_group, spatial_group, spatial_rank
+    from emrt_tpu_torch.parallel.spatial import shard_model_
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
+    dtype = torch.float32 if cfg.TRAIN.DTYPE == "float32" else torch.bfloat16
+    model = get_model(cfg, device=device, dtype=dtype)
+    if init is not None:
+        model.load_state_dict(init)
+    _set_kernel_and_dropout(model, dropout=dropout)
+    shard_model_(model, spatial_rank(), SP_WORLD, spatial_group())
+    convert_sync_batchnorm(model)
+    optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
+    trained = DistributedDataParallel(model, device_ids=[device], broadcast_buffers=False,
+                                      process_group=gradient_group())
+    return model, optimizer, make_train_step(trained, get_loss_function(cfg), optimizer)
+
+
+def _large_batch(cfg, device):
+    """(d)'s batch: SP_LARGE_BS synthetic crops of SP_LARGE_CROP^2, the same on
+    every rank (each keeps its rows)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(3)
+    n, size = SP_LARGE_BS, SP_LARGE_CROP
+    return {"image": torch.randn((n, 3, size, size), generator=gen, device=device),
+            "label": torch.randint(0, cfg.DATA.NUM_CLASSES, (n, size, size), generator=gen,
+                                   device=device)}
+
+
+def _large_config():
+    cfg = _train_config()
+    cfg.DATA.CROP_SIZE = (SP_LARGE_CROP, SP_LARGE_CROP)
+    return cfg
+
+
+# (d): the regions of EMRT._forward whose activations the breakdown reads, in
+# the order the forward runs them
+SP_REGIONS = ("backbone", "spatial_branch", "psp_module", "model", "EFP", "cls_psp",
+              "uphead", "auxlayer")
+
+
+def large_step_rank(rank, world, devices):
+    """(d) on one rank of dp1 x sp``world`` (one process for ``world`` 1), a
+    fresh process: SP_TIMED bf16 steps of ``_large_batch`` after one
+    warm-up, their median ms (CUDA events) and the peak memory this process
+    allocated over them; the memory the model, its gradients and the
+    optimizer's state hold before a step; and, in the warm-up step, the
+    memory each region of the model (``SP_REGIONS``) added in the forward
+    (its saved activations and outputs), in GiB."""
+    import torch
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.parallel.mesh import model_parallel
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
+    from emrt_tpu_torch.train.cli import spatial_rows
+    device = torch.device(devices[rank])
+    torch.cuda.set_device(device)
+    cfg = _large_config()
+    torch.manual_seed(0)
+    with model_parallel(1, world):
+        if world == 1:
+            model = get_model(cfg, device=device, dtype=torch.bfloat16)
+            step = make_train_step(model, get_loss_function(cfg),
+                                   get_optimizer(cfg, model, get_scheduler(cfg)))
+        else:
+            cfg.PARALLEL.SPATIAL = world
+            model, _, step = _sp_step(cfg, device)
+        batch = spatial_rows(model, _large_batch(cfg, device))
+        gib = 2 ** 30
+        marks = []
+        hooks = [getattr(model, name).register_forward_hook(
+            lambda *_, name=name: marks.append((name, torch.cuda.memory_allocated(device))))
+            for name in SP_REGIONS]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(device)
+        step(batch)                                        # the warm-up step
+        for h in hooks:
+            h.remove()
+        regions, last = {}, before
+        for name, mem in marks:
+            regions[name] = regions.get(name, 0.0) + (mem - last) / gib
+            last = mem
+        torch.cuda.synchronize()
+        state = torch.cuda.memory_allocated(device) / gib  # the weights, gradients, momentum
+        torch.cuda.reset_peak_memory_stats(device)
+        ms = cuda_ms(lambda: step(batch), reps=SP_TIMED, warmup=0)
+        return {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated(device) / gib,
+                "state_gib": state, "regions": regions}
+
+
+def sp_step_rank(rank, world, devices, reference):
+    """(a) and (b) on one rank of dp1 x sp2: one float32 step of the 8 rows
+    at ``reference`` (``dp_reference`` with dropout SP_DROPOUT), this rank's
+    128 of their 256 image rows, with torch seeded as the reference was: its
+    loss as the train CLI logs it (the ranks' mean), gradients, running
+    statistics and gradient norm against the one-process step's, the SHA-256
+    of its whole state after the step, and its kernels' launches, heads and
+    query counts."""
+    import hashlib
+
+    import torch
+    from emrt_tpu_torch.parallel.mesh import (all_reduce_gradient, gradient_world,
+                                              model_parallel)
+    from emrt_tpu_torch.train.cli import spatial_rows
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(devices[rank])
+    torch.cuda.set_device(device)
+    ref = torch.load(reference, weights_only=True)
+    cfg = _train_config()
+    cfg.TRAIN.DTYPE = "float32"
+    cfg.PARALLEL.SPATIAL = SP_WORLD
+    out = {}
+    with model_parallel(1, SP_WORLD):
+        model, optimizer, step = _sp_step(cfg, device, ref["init"], dropout=SP_DROPOUT)
+        batch = spatial_rows(model, {k: v.to(device) for k, v in ref["batch"].items()})
+        out["rows"] = tuple(batch["image"].shape[2:])
+        calls = set()
+        _record_heads(calls, queries=True)
+        torch.manual_seed(SP_SEED)
+        _reset_counts()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        out["launches_a"], out["calls"] = _counts(), sorted(calls)
+        out["loss"] = (all_reduce_gradient(loss.clone()) / gradient_world()).item()
+        out["loss_ref"] = ref["loss"]
+        out["norm"], out["norm_ref"] = optimizer.grad_norm.item(), ref["norm"]
+        grads = torch.cat([p.grad.flatten() for p in model.parameters()]).cpu()
+        out["grad_rel"] = ((grads - ref["grads"]).norm() / ref["grads"].norm()).item()
+        stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
+        out["stats_rel"] = max(((stats[k] - v).abs().max() / v.abs().max()).item()
+                               for k, v in ref["stats"].items())
+        out["n_stats"] = len(stats)
+        digest = hashlib.sha256()
+        for value in model.state_dict().values():
+            digest.update(value.cpu().numpy().tobytes())
+        out["state_sha256"] = digest.hexdigest()
+    return out
+
+
+def sp_step_failures(out) -> list[str]:
+    """The checks of (a) and (b) that ``sp_step_rank``'s result fails."""
+    checks = (
+        (out["rows"] == (128, 256), f"a rank trained on {out['rows']} image rows x columns"),
+        (abs(out["loss"] - out["loss_ref"]) <= DP_LOSS_RTOL * abs(out["loss_ref"]),
+         f"SP loss {out['loss']} vs one process's {out['loss_ref']} (rtol {DP_LOSS_RTOL})"),
+        (out["grad_rel"] <= TRAIN_BN_GRAD_RTOL,
+         f"SP gradients differ by {out['grad_rel']} (L2, tol {TRAIN_BN_GRAD_RTOL})"),
+        (out["n_stats"] > 100 and out["stats_rel"] <= DP_STATS_TOL,
+         f"running statistics differ by {out['stats_rel']} x max (tol {DP_STATS_TOL})"),
+        (abs(out["norm"] - out["norm_ref"]) <= SP_NORM_RTOL * out["norm_ref"],
+         f"gradient norm {out['norm']} vs one process's {out['norm_ref']} "
+         f"(rtol {SP_NORM_RTOL})"),
+        (tuple(out["launches_a"]) == (6, 6),
+         f"an SP step launched forward/backward {out['launches_a']}"),
+        (out["calls"] == SP_CALLS, f"the kernels ran as {out['calls']}, not {SP_CALLS} "
+                                   f"(kind, heads, queries)"))
+    return [what for ok, what in checks if not ok]
+
+
+def phase9_step(backend, devices, reference):
+    """(a) and (b) over ``backend``: dp1 x sp2 with rank r on ``devices[r]``.
+    Returns the kernels' launches in the ranks' (a) steps."""
+    from emrt_tpu_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(sp_step_rank, SP_WORLD, args=(devices[:SP_WORLD], reference),
+                      backend=backend, timeout=900)
+    leg = f"phase 9 ({backend})"
+    print(f"{leg}: dp1 x sp{SP_WORLD} on {', '.join(devices[:SP_WORLD])}: the ranks ran in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for r, out in enumerate(ranks):
+        print(f"{leg}: rank {r} (a) float32 dp1 x sp{SP_WORLD} step of 8 x {out['rows']} "
+              f"rows x columns, dropout {SP_DROPOUT}: loss {out['loss']:.9g} against one "
+              f"process's {out['loss_ref']:.9g} (rtol {DP_LOSS_RTOL}); gradients |sp-one|/|one| "
+              f"(L2) {out['grad_rel']:.3e} (tol {TRAIN_BN_GRAD_RTOL}); BatchNorm running "
+              f"statistics within {out['stats_rel']:.3e} x max (tol {DP_STATS_TOL}); gradient "
+              f"norm before the clip {out['norm']:.9g} against {out['norm_ref']:.9g} (rtol "
+              f"{SP_NORM_RTOL}); (b) launches forward/backward {out['launches_a']}, calls "
+              f"(kind, heads, queries) {out['calls']}")
+        failures = sp_step_failures(out)
+        check(not failures, f"rank {r}: {'; '.join(failures)}")
+    check(len({out["state_sha256"] for out in ranks}) == 1,
+          "the ranks' parameters and buffers differ after the dropout step")
+    print(f"{leg}: (a) after the step the parameters and buffers are bitwise equal on the "
+          f"{SP_WORLD} ranks (sha256 {ranks[0]['state_sha256'][:16]})")
+    return tuple(sum(out["launches_a"][i] for out in ranks) for i in range(2))
+
+
+def phase9_memory(card, backend, devices):
+    """(d): one process's bf16 step at the large crop and a dp1 x sp2 rank's,
+    each in fresh processes; prints their times, peak memory and breakdown."""
+    from emrt_tpu_torch.parallel.launch import run_ranks
+    leg = f"phase 9 ({backend})"
+    one = run_ranks(large_step_rank, 1, args=(devices[:1],), backend=backend, timeout=600)[0]
+    ranks = run_ranks(large_step_rank, SP_WORLD, args=(devices[:SP_WORLD],), backend=backend,
+                      timeout=600)
+    note = ("the ranks share one card over gloo: agreement and memory figures, not scaling"
+            if len(set(devices[:SP_WORLD])) == 1 else "one card a rank")
+    for who, out in [("one process", one)] + [(f"rank {r}", o) for r, o in enumerate(ranks)]:
+        regions = ", ".join(f"{k} {v:.3f}" for k, v in out["regions"].items())
+        print(f"{leg}: (d) {who}: bf16 step of {SP_LARGE_BS} x {SP_LARGE_CROP}^2 crops"
+              f"{'' if who == 'one process' else f' ({SP_LARGE_CROP // SP_WORLD} rows a rank)'}: "
+              f"{out['ms']:.2f} ms (median of {SP_TIMED}, CUDA events), peak memory "
+              f"{out['peak_gib']:.3f} GiB, of which weights, gradients and optimizer state "
+              f"{out['state_gib']:.3f}; the forward's activations by region (GiB): {regions} "
+              f"({card}{'' if who == 'one process' else '; ' + note})")
+    peak = max(out["peak_gib"] for out in ranks)
+    print(f"{leg}: (d) peak memory a rank / one process's: {peak / one['peak_gib']:.3f} "
+          f"({peak:.3f} / {one['peak_gib']:.3f} GiB; {card})")
+
+
+def phase9_torchrun(save_dir):
+    """(c) ``torchrun --standalone --nproc_per_node 2 -m emrt_tpu_torch.train
+    --device cuda ... PARALLEL.SPATIAL 2`` for two iterations with a save
+    and an eval, then one-process ``val.main`` on its best_model.pt against
+    the run's mIoU."""
+    import json
+
+    from emrt_tpu_torch.val import main as val_main
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", str(SP_WORLD), "-m", "emrt_tpu_torch.train"]
+    t0 = time.perf_counter()
+    out = _run_group([*launch, "--config", str(CONFIG), "--device", "cuda", "--iters",
+                      str(SP_TORCHRUN_ITERS), "--seed", "0", "DATA.DATASET", "Synthetic",
+                      "DATA.BATCH_SIZE", str(TRAIN_BS), "TRAIN.DTYPE", "bfloat16",
+                      "SAVE_DIR", save_dir, "LOGGING_INFO_FREQ", "1",
+                      "PARALLEL.SPATIAL", str(SP_WORLD)], timeout=600)
+    check(f"ranks: {SP_WORLD}" in out and f"spatial axis = {SP_WORLD}" in out
+          and f"training done at iter {SP_TORCHRUN_ITERS}" in out,
+          f"torchrun train.main PARALLEL.SPATIAL {SP_WORLD}:\n{out[-4000:]}")
+    losses = re.findall(r"loss: ([0-9.na]+)", out)
+    check(len(losses) == SP_TORCHRUN_ITERS and all(float(x) == float(x) for x in losses),
+          f"losses {losses}")
+    best = json.loads((Path(save_dir) / "best_model.json").read_text())["best_miou"]
+    result = val_main(["--config", str(CONFIG), "--device", "cuda", "--model_path",
+                       str(Path(save_dir) / "best_model.pt"), "DATA.DATASET", "Synthetic",
+                       "TRAIN.DTYPE", "bfloat16"])
+    print(f"phase 9 (c): torchrun --nproc_per_node {SP_WORLD} train.main --device cuda "
+          f"PARALLEL.SPATIAL {SP_WORLD}, {SP_TORCHRUN_ITERS} iterations with a save and an eval, "
+          f"in {time.perf_counter() - t0:.1f} s: losses {losses}; one-process val.main on its "
+          f"best_model.pt: mIoU {result['miou']:.6f} against the run's {best:.6f}")
+    check(abs(result["miou"] - best) <= F6_MIOU_TOL,
+          f"val.main gives mIoU {result['miou']}, the SP run {best}")
+
+
+def phase9(card, torchrun=True):
+    """Spatial parallelism (``emrt_tpu_torch.parallel.spatial``) on the
+    flagship at full width and depth: dp1 x sp2 with the ranks on the one
+    card over gloo, over NCCL a card a rank where there are two; then the
+    train CLI under torchrun and ``val.main`` on its checkpoint. Returns the
+    forward and backward launches of the ranks' (a) steps."""
+    import tempfile
+
+    import torch
+    torch.cuda.empty_cache()
+    launches = (0, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        reference = dp_reference(Path(tmp) / "reference.pt", dropout=SP_DROPOUT)
+        legs = [("gloo", ["cuda:0"] * SP_WORLD)]
+        if torch.cuda.device_count() >= SP_WORLD:
+            legs.append(("nccl", [f"cuda:{r}" for r in range(SP_WORLD)]))
+        for backend, devices in legs:
+            got = phase9_step(backend, devices, reference)
+            launches = tuple(a + b for a, b in zip(launches, got))
+            phase9_memory(card, backend, devices)
+        if torchrun:
+            phase9_torchrun(str(Path(tmp) / "torchrun"))
+    if torch.cuda.device_count() < SP_WORLD:
+        print(f"phase 9: the NCCL leg was not run: {torch.cuda.device_count()} card(s), it "
+              f"needs {SP_WORLD}")
+    print(f"phase 9: K1 / K2-K3 launches in the ranks' (a) steps: {launches}")
+    return launches
+
+
 _CATEGORIES = (   # (category, substrings of a kernel's name), first match wins
     ("K1 deformable fwd", ("ms_deform_attn_fwd",)),
     ("K2+K3 deformable bwd (fused)", ("ms_deform_attn_bwd",)),
@@ -2409,6 +2737,7 @@ def main():
     phase6(card)
     dp_launches = phase7(card)
     tp_launches = phase8(card)
+    sp_launches = phase9(card)
     from emrt_tpu_torch.ops import deformable_cuda
     name, levels, len_q = SHAPES[0]
     fwd = fwd_times[name, BS, torch.bfloat16]
@@ -2434,7 +2763,7 @@ def main():
          "launches": launches, "launches_train": train_launches[0],
          "launches_variants": variant_launches[0], "launches_inference": inference_launches,
          "launches_dp": dp_launches[0], "launches_tp": tp_launches[0],
-         "max_abs_err": max_err, "ms": fwd["random"], "ms_on_the_grid": fwd["on the grid"],
+         "launches_sp": sp_launches[0], "max_abs_err": max_err, "ms": fwd["random"], "ms_on_the_grid": fwd["on the grid"],
          "ms_bs8": fwd_times[name, TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": fwd["plain"], "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
          "library_ms": None, "plan": str(plan), "timed_at": timed_at,
@@ -2445,7 +2774,7 @@ def main():
                      "emrt_tpu/ops/deformable_pallas.py:277",
          "launches": train_launches[1], "launches_variants": variant_launches[1],
          "launches_dp": dp_launches[1], "launches_tp": tp_launches[1],
-         "max_abs_err": bwd_err, "ms": bwd["random"], "ms_on_the_grid": bwd["on the grid"],
+         "launches_sp": sp_launches[1], "max_abs_err": bwd_err, "ms": bwd["random"], "ms_on_the_grid": bwd["on the grid"],
          "ms_bs8": bwd_times[SHAPES[0][0], TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": bwd["plain"], "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],
          "library_ms": None, "timed_at": timed_at, "tp_heads": at_tp_heads(bwd_times),
@@ -2466,6 +2795,14 @@ def main_tp_step():
     print("chip_smoke.py --tp-step: passed")
 
 
+def main_sp_step():
+    """``--sp-step``: phase 0, then phase 9 without the CLIs ((a), (b) and (d)
+    over gloo, both ranks on the first card)."""
+    card = phase0()
+    phase9(card, torchrun=False)
+    print("chip_smoke.py --sp-step: passed")
+
+
 def main_train_step():
     """``--train-step``: phase 0, then phase 3c's timing of one process's
     bf16 bs-8 train step alone (median of 20)."""
@@ -2474,7 +2811,8 @@ def main_train_step():
 
 
 if __name__ == "__main__":
-    modes = {"--tp-step": main_tp_step, "--train-step": main_train_step}
+    modes = {"--tp-step": main_tp_step, "--sp-step": main_sp_step,
+             "--train-step": main_train_step}
     if sys.argv[1:] and sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")
     modes.get(sys.argv[1] if sys.argv[1:] else None, main)()

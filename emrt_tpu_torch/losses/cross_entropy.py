@@ -13,28 +13,32 @@ all ``ignore_index`` gives 0 (``F.cross_entropy``'s mean gives NaN there).
 
 Under data parallelism (``parallel/mesh.py``) the JAX package's mean is over
 the global batch: the count of kept pixels (and OHEM's k-th probability) is
-that of the rows of every rank of the data group together (the ranks of a
-model group hold the same rows). Each rank then returns N x (its rows'
-sum) / (the global count), N the data group's ranks, so that the mean of
-the ranks' losses is the global loss and DDP's average of the ranks'
-gradients is its gradient; an all-ignored rank contributes 0. With one
-data rank nothing changes.
+that of the rows of every rank of the gradient group together (the data
+ranks and, under spatial parallelism, each one's spatial ranks, which hold
+their own image rows and logits' rows; the ranks of a model group hold the
+same rows). Each rank then returns N x (its rows' sum) / (the global
+count), N the gradient group's ranks, so that the mean of the ranks' losses
+is the global loss and DDP's average of the ranks' gradients is its
+gradient; an all-ignored rank contributes 0. With one rank nothing changes.
+OHEM is not ported under spatial parallelism (``check_parallel``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import all_reduce_data, data_rank, data_world
+from ..parallel.mesh import (all_reduce_data, all_reduce_gradient, data_rank, data_world,
+                             gradient_world)
 
 
 def _mean(total, count):
-    """total / max(count, 1) of one process; under data parallelism this
-    rank's share of the global mean, times the data group's ranks."""
-    if data_world() == 1:
+    """total / max(count, 1) of one process; under data (and spatial)
+    parallelism this rank's share of the global mean, times the gradient
+    group's ranks."""
+    if gradient_world() == 1:
         return total / count.clamp(min=1)
-    count = all_reduce_data(count.detach().float())
-    return total * data_world() / count.clamp(min=1)
+    count = all_reduce_gradient(count.detach().float())
+    return total * gradient_world() / count.clamp(min=1)
 
 
 def masked_ce(logits, label, ignore_index: int = 255):

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import BatchNorm2d, conv2d
+from ..layers import BatchNorm2d, conv2d, max_pool_3x3s2, sharded
 
 
 def _bn(c: int) -> BatchNorm2d:
@@ -80,7 +80,11 @@ class ResNet(nn.Module):
     """Feature-pyramid ResNet; forward returns (c1, c2, c3, c4).
 
     stem: None for the 7x7 conv, or the widths of a deep stem's three 3x3
-    convs (``conv1`` Sequential, its last BatchNorm is ``bn1``)."""
+    convs (``conv1`` Sequential, its last BatchNorm is ``bn1``). ``spatial``
+    is the ``SpatialShard`` of a spatially sharded model (its max pool's
+    halo; ``parallel/spatial.py``)."""
+
+    spatial = None
 
     def __init__(self, layers=(3, 4, 6, 3), block=Bottleneck, stem=None,
                  output_stride: int = 32):
@@ -110,7 +114,7 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = max_pool_3x3s2(x, sharded(self))
         c1 = self.layer1(x)
         c2 = self.layer2(c1)
         c3 = self.layer3(c2)

@@ -38,7 +38,8 @@ from .backbones.resnext import resnest50, resnext50_64x4d
 from .backbones.vit import ViTEncoder
 from .decoders.fcn_head import FCNHead
 from .deformable_transformer import EncoderDecoder, tokens_to_levels
-from .layers import AdaptiveAvgPool, BatchNorm2d, ConvBNReLU, kaiming_normal_, layer_norm
+from .layers import (AdaptiveAvgPool, BatchNorm2d, ConvBNReLU, RowDropout, halo_rows,
+                     kaiming_normal_, layer_norm, max_pool_3x3s2, sharded)
 
 
 class Conv2dBlock(nn.Module):
@@ -85,13 +86,15 @@ class PyramidPoolingModule(nn.Module):
 
 
 class _SpatialStage(nn.Module):
+    spatial = None
+
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.encode = nn.Sequential(*ConvBNReLU(cin, cout, 3),
                                     *ConvBNReLU(cout, cout, 3))
 
     def forward(self, x):
-        return self.encode(F.max_pool2d(x, 3, stride=2, padding=1))
+        return self.encode(max_pool_3x3s2(x, sharded(self)))
 
 
 class SpatialBranch(nn.Module):
@@ -113,7 +116,12 @@ class UpHead(nn.Module):
     (reference :115-181, num_conv=3 path => 8x upsample total).
 
     As in the reference, ``conv_0..2`` carry biases (the JAX package folds
-    them into the BN means); they start at zero."""
+    them into the BN means); they start at zero. Under a spatial shard
+    (``parallel/spatial.py``) each 2x resize reads one row of each
+    neighbour (the edge row at the image's top and bottom) and keeps the
+    rank's output rows."""
+
+    spatial = None
 
     def __init__(self, num_classes: int = 6):
         super().__init__()
@@ -123,22 +131,42 @@ class UpHead(nn.Module):
         self.conv_3 = kaiming_normal_(nn.Conv2d(256, num_classes, 1))
 
     @staticmethod
-    def _up(x):
-        return resize_bilinear(x, (2 * x.shape[2], 2 * x.shape[3]), align_corners=False)
+    def _up(x, shard=None):
+        if shard is None:
+            return resize_bilinear(x, (2 * x.shape[2], 2 * x.shape[3]), align_corners=False)
+        # row z of the padded block's 2x resize is the image's row 2k - 2 + z
+        # (k the block's first row), from the same source rows and weights
+        rows = x.shape[2]
+        x = shard.halo(x, *halo_rows(3, 1, 1, 1), mode="edge")
+        return resize_bilinear(x, (2 * x.shape[2], 2 * x.shape[3]),
+                               align_corners=False)[:, :, 2:2 + 2 * rows]
 
     def forward(self, x):
+        shard = sharded(self)
         for i in range(3):
             conv, bn = getattr(self, f"conv_{i}"), getattr(self, f"syncbn_fc_{i}")
             x = F.relu(bn(conv(x)))
             if i < 2:
-                x = self._up(x)
-        return self._up(self.conv_3(x))
+                x = self._up(x, shard)
+        return self._up(self.conv_3(x), shard)
 
 
 class EMRT(nn.Module):
     """EMRT assembly (reference :183-304). The ``trans_*`` knobs shape CSwin,
     the ``vit_*`` knobs and ``img_size`` (h, w) ViT, ``output_stride`` the
-    ResNets; the other backbones have fixed widths."""
+    ResNets; the other backbones have fixed widths.
+
+    With a ResNet backbone the model can be sharded over image rows
+    (``parallel/spatial.py``; ``spatial_stride`` is the deepest stride of
+    its sharded region, None for the other backbones). In training mode
+    under a ``SpatialShard`` (``spatial``) the backbone, the spatial branch,
+    the aux head, ``cls_psp`` and ``uphead`` run on the rank's rows with
+    halo exchanges; their maps are gathered whole for the pyramid pooling,
+    the encoder-decoder and EFP, which every rank of the group runs alike;
+    and the PSP re-broadcast, the fused pyramid and the aux logits come back
+    to the rank's rows. Both outputs are then the rank's rows."""
+
+    spatial = None
 
     def __init__(self, num_classes: int = 6, backbone: str = "resnet50",
                  output_stride: int = 32, psp_scales: Sequence[int] = (1, 3, 6, 8),
@@ -155,6 +183,7 @@ class EMRT(nn.Module):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.dtype = dtype
         self.psp_scales = tuple(psp_scales)
+        self.spatial_stride = None
         # reference keys the forward never reads: Paddle registers tgt_embed
         # (transformer_encoder_decoder.py:367-369, 469-471); the SegFormer
         # wrapper's head is dead weight (segformer_paddleSeg.py:80-84)
@@ -168,6 +197,7 @@ class EMRT(nn.Module):
             self.variant = "cnn"
             self.backbone = resnet(depth, name.endswith("c"), output_stride)
             channels = backbone_channels(depth)[1:]
+            self.spatial_stride = output_stride
         elif name in ("resnext50", "resnest50"):
             self.variant = "cnn"
             self.backbone = resnext50_64x4d() if name == "resnext50" else resnest50()
@@ -218,9 +248,13 @@ class EMRT(nn.Module):
         # context + one re-broadcast map per PSP scale + the fused pyramid
         self.cls_psp = nn.Sequential(
             *ConvBNReLU(256 * (2 + len(self.psp_scales)), 512, 3),
-            *ConvBNReLU(512, 256, 3), nn.Dropout(0.1))
+            *ConvBNReLU(512, 256, 3), RowDropout(0.1))
         self.uphead = UpHead(num_classes)
         self.auxlayer = FCNHead(aux_channels, max(aux_channels // 4, 16), num_classes)
+
+    def spatial_region(self):
+        """The modules that run on a rank's rows under a spatial shard."""
+        return (self.backbone, self.spatial_branch, self.auxlayer, self.cls_psp, self.uphead)
 
     def forward(self, images):
         with torch.autocast(images.device.type, dtype=torch.bfloat16,
@@ -248,27 +282,40 @@ class EMRT(nn.Module):
 
     def _forward(self, x):
         bs = x.shape[0]
+        shard = sharded(self)
         x_fea, aux_feat = self._backbone_features(x)
         x_context = self.spatial_branch(x)                       # [bs, 256, H/8, W/8]
-        x_psp = self.psp_module(x_context)
+        ctx_full = x_context
+        if shard is not None:      # the rows of every rank, for the replicated region
+            x_fea = [shard.gather_rows(f) for f in x_fea]
+            ctx_full = shard.gather_rows(x_context)
+        x_psp = self.psp_module(ctx_full)
         x_trans, memory = self.model(x_fea, x_psp)
 
         # unflatten memory back to the three level maps (reference :265-279)
         spatial_shapes = tuple(tuple(f.shape[2:]) for f in x_fea)
         x_fpn = self.EFP(*tokens_to_levels(memory, spatial_shapes))
 
-        # PSP-token re-broadcast to the context grid (reference :281-291)
-        ctx_hw = x_context.shape[2:]
+        # PSP-token re-broadcast to the context grid (reference :281-291);
+        # under a shard, only the rank's rows of it are computed
+        ctx_hw = ctx_full.shape[2:]
+        resize = resize_bilinear if shard is None else shard.resize_rows
         cat, idx = [x_context], 0
         for s in self.psp_scales:
             pooled = x_trans[:, idx:idx + s * s].transpose(1, 2).reshape(bs, -1, s, s)
-            cat.append(resize_bilinear(pooled, ctx_hw, align_corners=True))
+            cat.append(resize(pooled, ctx_hw, align_corners=True))
             idx += s * s
         # ViT's taps are all at stride 16: the fused pyramid goes to the 1/8
-        # context grid (reference cswin_backbone.py:295-296)
-        cat.append(resize_bilinear(x_fpn, ctx_hw, align_corners=False))
+        # context grid (reference cswin_backbone.py:295-296); a ResNet's c2
+        # is on it already
+        fpn = resize_bilinear(x_fpn, ctx_hw, align_corners=False)
+        cat.append(fpn if shard is None else shard.own_rows(fpn))
         main = self.uphead(self.cls_psp(torch.cat(cat, dim=1)))
-        aux = resize_bilinear(self.auxlayer(aux_feat), x.shape[2:], align_corners=True)
+        aux = self.auxlayer(aux_feat)
+        if shard is not None:
+            aux = shard.gather_rows(aux)
+        full_h = x.shape[2] if shard is None else x.shape[2] * shard.world
+        aux = resize(aux, (full_h, x.shape[3]), align_corners=True)
         return main, aux
 
 

@@ -79,6 +79,60 @@ class Conv2dSame(nn.Conv2d):
         return self._conv_forward(F.pad(x, pads), self.weight, self.bias)
 
 
+def halo_rows(kernel: int, stride: int, dilation: int, padding: int) -> tuple[int, int]:
+    """(rows above, rows below) that a window op (a conv, a pool) over a
+    block of rows divisible by ``stride`` reads beyond it: ``padding``
+    above and ``(kernel - 1) * dilation - padding - (stride - 1)`` below
+    (none if negative). With them in place it runs with no padding along H
+    and gives the block's own output rows (``parallel/spatial.py``)."""
+    return padding, max(0, (kernel - 1) * dilation - padding - (stride - 1))
+
+
+def sharded(module):
+    """The ``SpatialShard`` a module of a spatially sharded region runs over
+    in training mode (``parallel/spatial.py::shard_model_``), else None: in
+    eval mode the whole model runs on every rank."""
+    return module.spatial if module.training else None
+
+
+class HaloConv2d(nn.Conv2d):
+    """``nn.Conv2d`` of a spatially sharded region (``shard_model_`` swaps
+    the class in place): under its shard it gives the rank's output rows,
+    the rows it reads above and below the rank's coming from the
+    neighbouring ranks (zeros at the image's edges; ``SpatialShard.window``)."""
+
+    spatial = None
+
+    def forward(self, x):
+        shard = sharded(self)
+        if shard is None:
+            return super().forward(x)
+        return shard.window(x, lambda t, pad: F.conv2d(
+            t, self.weight, self.bias, self.stride, (pad, self.padding[1]), self.dilation,
+            self.groups), self.kernel_size[0], self.stride[0], self.dilation[0],
+            self.padding[0])
+
+
+def max_pool_3x3s2(x, shard=None):
+    """``F.max_pool2d(x, 3, stride=2, padding=1)``; over a ``shard``'s rows,
+    the row above from the rank above (-inf at the image's top)."""
+    if shard is None:
+        return F.max_pool2d(x, 3, stride=2, padding=1)
+    return shard.window(x, lambda t, pad: F.max_pool2d(t, 3, stride=2, padding=(pad, 1)),
+                        3, 2, 1, 1, mode="-inf")
+
+
+class RowDropout(nn.Dropout):
+    """``nn.Dropout`` that draws its mask through ``split_dropout`` along
+    the rows (dim 2), whole or, under a spatial shard, the full height's
+    mask cut to the rank's rows: one process and a sharded run draw alike."""
+
+    spatial = None
+
+    def forward(self, x):
+        return split_dropout(x, self.p, self.training, 2, sharded(self))
+
+
 def conv2d(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
            padding=None, groups: int = 1, bias: bool = False) -> nn.Conv2d:
     """Kaiming-initialised conv; padding None pads dilation * (kernel // 2) on

@@ -1,26 +1,32 @@
-"""The process grid of data and tensor parallelism (counterpart of
+"""The process grid of data, tensor and spatial parallelism (counterpart of
 ``emrt_tpu/parallel/mesh.py``; reference train.py:116-123, val.py:164-170).
 
 The JAX package lays its devices out as a ``(data, model, spatial)`` mesh
 and lets XLA insert the collectives. Here each of N processes (one per GPU,
-started by ``torchrun --nproc_per_node N``) is a rank of that grid with
-SPATIAL 1: rank r = d * MODEL + m, the JAX device array's ``reshape(data,
-model, spatial)``. The ranks of equal m form a data group, those of equal d
-a model group. A data group holds replicas of one shard of the model and
-its own rows of the global batch: DDP all-reduces the gradients over it,
-``sync_bn.SyncBatchNorm2d`` takes BatchNorm statistics over its global
-batch, the losses divide by its global count of kept pixels and
-``evaluate`` sums the confusion areas of its ranks. A model group holds one
-model split Megatron-style (``parallel/tensor.py``) and loads the same
-rows. Without a process group (one process, no ``torchrun``) every
-function here answers for one rank and nothing communicates.
+started by ``torchrun --nproc_per_node N``) is a rank of that grid: rank r =
+(d * MODEL + m) * SPATIAL + s, the JAX device array's ``reshape(data,
+model, spatial)``. The ranks of equal (m, s) form a data group, those of
+equal (d, s) a model group, those of equal (d, m) a spatial group, and
+those of equal m a gradient group (data x spatial). A data group holds
+replicas of one shard of the model and its own rows of the global batch:
+the loader shards the batch over it, the replicated region's BatchNorm
+(``sync_bn.SyncBatchNorm2d``) takes its statistics over its global batch
+and ``evaluate`` sums the confusion areas of its ranks. A model group holds
+one model split Megatron-style (``parallel/tensor.py``) and loads the same
+rows. A spatial group loads the same rows too, and each of its ranks trains
+on its block of the image rows (``parallel/spatial.py``). A gradient group
+is what DDP all-reduces the gradients over and what the losses count kept
+pixels over: with SPATIAL 1 it is the data group. Without a process group
+(one process, no ``torchrun``) every function here answers for one rank and
+nothing communicates.
 
 Launch: ``torchrun --nproc_per_node 4 -m emrt_tpu_torch.train --config
-<yaml> PARALLEL.MODEL 2`` trains dp2 x tp2 (PARALLEL.DATA -1 or 2). On the
-CPU the tests run the ranks in processes over gloo
-(``tests/test_torch_tensor_parallel*.py``, ``parallel.launch.run_ranks``).
-Spatial sharding (``spatial_batch_sharding``, PARALLEL.SPATIAL) is not
-ported: ROADMAP.md queue 1, M12c.
+<yaml> PARALLEL.MODEL 2`` trains dp2 x tp2 (PARALLEL.DATA -1 or 2);
+``... --nproc_per_node 2 ... PARALLEL.SPATIAL 2`` trains dp1 x sp2 (an
+EMRT with a ResNet backbone; MODEL stays 1 under SPATIAL, ROADMAP.md queue
+1, item 2). On the CPU the tests run the ranks in processes over gloo
+(``tests/test_torch_{tensor_parallel,spatial}*.py``,
+``parallel.launch.run_ranks``).
 """
 from __future__ import annotations
 
@@ -68,28 +74,49 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
 
 
 class _Grid:
-    """This rank's place in the (data, model) grid and the groups it joined."""
+    """This rank's place in the (data, model, spatial) grid and the groups it
+    joined (None for a group of one rank, and for a data or gradient group
+    that is the whole world: the default group)."""
 
-    def __init__(self, model: int = 1):
+    def __init__(self, model: int = 1, spatial: int = 1):
         world, r = world_size(), rank()
-        self.model_world, self.model_rank = model, r % model
-        self.data_world, self.data_rank = world // model, r // model
-        self.data_group = self.model_group = None   # None: the whole world, or no group
+        self.model_world, self.spatial_world = model, spatial
+        self.data_world = world // (model * spatial)
+        self.spatial_rank = r % spatial
+        self.model_rank = r // spatial % model
+        self.data_rank = r // (spatial * model)
+        self.gradient_world = self.data_world * spatial
+        self.data_group = self.model_group = self.spatial_group = self.gradient_group = None
         self.made = []
-        if model == 1:
+        if model == spatial == 1:
             return
-        # every rank makes every group, in one order
-        for d in range(self.data_world):
-            g = dist.new_group(list(range(d * model, (d + 1) * model)))
-            self.made.append(g)
-            if d == self.data_rank:
-                self.model_group = g
-        if self.data_world > 1:
-            for m in range(model):
-                g = dist.new_group(list(range(m, world, model)))
+
+        def at(d, m, s):
+            return (d * model + m) * spatial + s
+
+        def make(lists, mine):
+            # every rank makes every group, in one order
+            for ranks in lists:
+                g = dist.new_group(ranks)
                 self.made.append(g)
-                if m == self.model_rank:
-                    self.data_group = g
+                if mine in ranks:
+                    yield g
+
+        D, M, S = self.data_world, model, spatial
+        if M > 1:
+            self.model_group, = make([[at(d, m, s) for m in range(M)]
+                                      for d in range(D) for s in range(S)], r)
+        if S > 1:   # a group of its own even where it is the world
+            self.spatial_group, = make([[at(d, m, s) for s in range(S)]
+                                        for d in range(D) for m in range(M)], r)
+        if D > 1:
+            self.data_group, = make([[at(d, m, s) for d in range(D)]
+                                     for m in range(M) for s in range(S)], r)
+        if M > 1 and S > 1:
+            self.gradient_group, = make([[at(d, m, s) for d in range(D) for s in range(S)]
+                                         for m in range(M)], r)
+        elif M > 1:
+            self.gradient_group = self.data_group
 
 
 _grid = None
@@ -105,7 +132,8 @@ def data_rank() -> int:
 
 
 def data_world() -> int:
-    """The ranks of a data group: the replicas of one model shard."""
+    """The ranks of a data group: the replicas of one model shard that load
+    other rows."""
     return _current().data_world
 
 
@@ -119,6 +147,22 @@ def model_world() -> int:
     return _current().model_world
 
 
+def spatial_rank() -> int:
+    """This rank's index in its spatial group (its block of the image rows)."""
+    return _current().spatial_rank
+
+
+def spatial_world() -> int:
+    """PARALLEL.SPATIAL: the ranks an image's rows are split over."""
+    return _current().spatial_world
+
+
+def gradient_world() -> int:
+    """The ranks of a gradient group (data x spatial): those whose parameter
+    gradients are parts of one sum."""
+    return _current().gradient_world
+
+
 def data_group():
     """The process group of this rank's data group (None: the default group)."""
     return _current().data_group
@@ -129,6 +173,17 @@ def model_group():
     return _current().model_group
 
 
+def spatial_group():
+    """The process group of this rank's spatial group (None where SPATIAL is 1)."""
+    return _current().spatial_group
+
+
+def gradient_group():
+    """The process group of this rank's gradient group (None: the default
+    group)."""
+    return _current().gradient_group
+
+
 def all_reduce_data(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over this rank's data group, in place (no gradient)."""
     if data_world() > 1:
@@ -136,17 +191,28 @@ def all_reduce_data(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def all_reduce_gradient(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over this rank's gradient group, in place (no gradient)."""
+    if gradient_world() > 1:
+        dist.all_reduce(t, group=gradient_group())
+    return t
+
+
 @contextlib.contextmanager
-def model_parallel(model: int = 1):
+def model_parallel(model: int = 1, spatial: int = 1):
     """For the length of a ``with`` block, lay the ranks out as a grid of
-    ``world / model`` data ranks by ``model`` model ranks (PARALLEL.MODEL),
-    making its groups; they are destroyed on leaving the block. ``model``
-    must divide the world (``check_parallel``)."""
+    ``world / (model * spatial)`` data ranks by ``model`` model ranks
+    (PARALLEL.MODEL) by ``spatial`` spatial ranks (PARALLEL.SPATIAL),
+    making its groups; they are destroyed on leaving the block. ``model *
+    spatial`` must divide the world (``check_parallel``)."""
     global _grid
     if model < 1 or world_size() % model:
         raise ValueError(f"PARALLEL.MODEL {model} does not divide the {world_size()} "
                          f"process(es) started")
-    outer, _grid = _grid, _Grid(model)
+    if spatial < 1 or world_size() % (model * spatial):
+        raise ValueError(f"PARALLEL.SPATIAL {spatial} x PARALLEL.MODEL {model} does not "
+                         f"divide the {world_size()} process(es) started")
+    outer, _grid = _grid, _Grid(model, spatial)
     try:
         yield _grid
     finally:
@@ -213,22 +279,35 @@ def build_kernels_once(model, device):
 
 def check_parallel(config, world: int, model=None):
     """Refuse a PARALLEL.* layout this port cannot run (the JAX package's
-    ``create_mesh`` axes): SPATIAL stays 1; MODEL divides the world, and
-    DATA is -1 or world / MODEL. Given the model, MODEL must also divide
-    every dimension it splits (``tensor.check_divides``), as JAX's
-    ``device_put`` refuses an uneven split."""
+    ``create_mesh`` axes): MODEL x SPATIAL divides the world, DATA is -1 or
+    world / (MODEL x SPATIAL), and MODEL is 1 where SPATIAL is not. Given the
+    model, MODEL must also divide every dimension it splits
+    (``tensor.check_divides``), as JAX's ``device_put`` refuses an uneven
+    split, and SPATIAL must fit it (``spatial.check_spatial``: an EMRT with
+    a ResNet backbone whose deepest sharded rows SPATIAL divides)."""
     p = config.PARALLEL
-    if p.SPATIAL > 1:
-        raise NotImplementedError(
-            f"PARALLEL.SPATIAL {p.SPATIAL}: spatial sharding is not ported "
-            f"(ROADMAP.md queue 1, M12c)")
     if p.MODEL < 1 or world % p.MODEL:
         raise ValueError(f"PARALLEL.MODEL {p.MODEL} does not divide the {world} "
                          f"process(es) started")
-    if p.DATA not in (-1, world // p.MODEL):
-        raise ValueError(f"PARALLEL.DATA {p.DATA} x PARALLEL.MODEL {p.MODEL} does not "
-                         f"match the {world} process(es) started (use -1 or "
-                         f"{world // p.MODEL})")
+    if p.SPATIAL < 1 or world % (p.MODEL * p.SPATIAL):
+        raise ValueError(f"PARALLEL.SPATIAL {p.SPATIAL} x PARALLEL.MODEL {p.MODEL} does "
+                         f"not divide the {world} process(es) started")
+    n_data = world // (p.MODEL * p.SPATIAL)
+    if p.DATA not in (-1, n_data):
+        raise ValueError(f"PARALLEL.DATA {p.DATA} x PARALLEL.MODEL {p.MODEL} x "
+                         f"PARALLEL.SPATIAL {p.SPATIAL} does not match the {world} "
+                         f"process(es) started (use -1 or {n_data})")
+    if p.SPATIAL > 1 and p.MODEL > 1:
+        raise NotImplementedError(
+            f"PARALLEL.SPATIAL {p.SPATIAL} with PARALLEL.MODEL {p.MODEL}: tensor x spatial "
+            f"parallelism is not ported (ROADMAP.md queue 1, item 2)")
+    if p.SPATIAL > 1 and config.TRAIN.LOSS == "OhemCrossEntropyLoss":
+        raise NotImplementedError(
+            f"PARALLEL.SPATIAL {p.SPATIAL} with OhemCrossEntropyLoss: its k-th probability "
+            f"over the spatial ranks' rows is not ported (ROADMAP.md queue 1, item 3)")
     if model is not None:
         from .tensor import check_divides
         check_divides(model, p.MODEL)
+        if p.SPATIAL > 1:
+            from .spatial import check_spatial
+            check_spatial(model, p.SPATIAL, int(config.DATA.CROP_SIZE[1]))

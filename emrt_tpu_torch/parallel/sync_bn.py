@@ -3,7 +3,14 @@
 statistics GSPMD reduces over the global array; reference: the
 ``nn.SyncBatchNorm`` layers of semantic_segmentation). The ranks of a model
 group hold the same rows, so the statistics are summed over the data group
-(``mesh.data_group``), not the world.
+(``mesh.data_group``), not the world. Under spatial parallelism
+(``parallel/spatial.py``) a layer of the sharded region (``spatial_stats``
+set) holds the rank's rows and sums over the gradient group (data x
+spatial: n is the global N*H*W); a layer of the replicated region holds the
+same whole maps on every rank of a spatial group and stays on the data
+group. Its backward there gets only the rank's rows' part of dy; being
+linear in dy, it passes that part on, and the gather's backward
+(``SpatialShard.gather_rows``) adds the parts.
 
 flax takes the statistics in float32 in one pass, mean = E[x] and var =
 max(E[x^2] - E[x]^2, 0) (``use_fast_variance``), normalises with that biased
@@ -25,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..models.layers import BatchNorm1d, BatchNorm2d
-from .mesh import all_reduce_data, data_world
+from .mesh import all_reduce_data, all_reduce_gradient, data_world, gradient_world
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -34,7 +41,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
     the global (mean, biased var) for the running statistics."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, all_reduce):
         dims = [0] + list(range(2, x.dim()))
         view = (1, -1) + (1,) * (x.dim() - 2)
         acc = torch.promote_types(x.dtype, torch.float32)
@@ -42,13 +49,14 @@ class _GlobalBatchNorm(torch.autograd.Function):
         c = x.shape[1]
         stats = torch.cat([xf.sum(dims), xf.square().sum(dims),
                            xf.new_full((1,), x.numel() // c)])
-        all_reduce_data(stats)
+        all_reduce(stats)
         n = stats[-1]
         mean = stats[:c] / n
         var = (stats[c:2 * c] / n - mean.square()).clamp(min=0.0)
         invstd = torch.rsqrt(var + eps)
         xhat = (xf - mean.view(view)) * invstd.view(view)
         ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.all_reduce = all_reduce
         y = xhat * weight.to(acc).view(view) + bias.to(acc).view(view)
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
@@ -67,19 +75,24 @@ class _GlobalBatchNorm(torch.autograd.Function):
         # the global sums of dxhat and dxhat * xhat: every rank's rows move
         # the statistics that every rank normalised with
         sums = torch.cat([grad_bias, grad_weight]) * w.repeat(2)
-        all_reduce_data(sums)
+        ctx.all_reduce(sums)
         grad_x = (dy * w.view(view) - (sums[:c] / n).view(view)
                   - xhat * (sums[c:] / n).view(view)) * invstd.view(view)
-        return grad_x.to(x.dtype), grad_weight.to(weight.dtype), grad_bias.to(weight.dtype), None
+        return (grad_x.to(x.dtype), grad_weight.to(weight.dtype), grad_bias.to(weight.dtype),
+                None, None)
 
 
 class _SyncMixin:
+    spatial_stats = False     # a layer of a spatially sharded region
+
     def forward(self, x):
-        if not (self.training and self.track_running_stats and data_world() > 1):
+        world, all_reduce = ((gradient_world(), all_reduce_gradient) if self.spatial_stats
+                             else (data_world(), all_reduce_data))
+        if not (self.training and self.track_running_stats and world > 1):
             return super().forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
-        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, all_reduce)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)

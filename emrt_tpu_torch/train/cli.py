@@ -32,9 +32,20 @@ gradients averaged over the data group, the losses' global mean; the seed
 of a step folds in the data rank. Evaluation is sharded over the data
 ranks, rank 0 logs, writes the checkpoints (whole tensors, gathered over
 the model group) and counts the FLOPs and parameters of the whole model.
-PARALLEL.SPATIAL > 1 is refused (``parallel.check_parallel``). Tensor
-parallelism: ``torchrun --nproc_per_node 4 -m emrt_tpu_torch.train
+Tensor parallelism: ``torchrun --nproc_per_node 4 -m emrt_tpu_torch.train
 --config <yaml> PARALLEL.MODEL 2`` (dp2 x tp2).
+
+With PARALLEL.SPATIAL = S > 1 (an EMRT with a ResNet backbone, MODEL 1;
+``parallel.check_parallel``) the ranks are laid out as DATA x S, as the
+JAX package places the batch on ``spatial_batch_sharding``: the S ranks of
+a spatial group load their data rank's rows and each trains on its block of
+H / S image and label rows (``parallel.spatial.shard_model_``: halo
+exchanges in the sharded region, the maps gathered for the transformer).
+DDP, the sharded region's BatchNorm and the losses' count run over the
+gradient group (data x spatial), the logged loss is that group's mean, and
+evaluation runs the whole model, sharded over the data ranks only:
+``torchrun --nproc_per_node 2 -m emrt_tpu_torch.train --config <yaml>
+PARALLEL.SPATIAL 2`` (dp1 x sp2).
 """
 from __future__ import annotations
 
@@ -52,8 +63,9 @@ from ..losses import get_loss_function
 from ..models import get_model
 from ..parallel import (check_parallel, convert_sync_batchnorm, distributed, is_main,
                         world_size)
-from ..parallel.mesh import (all_reduce_data, build_kernels_once, data_group, data_rank,
-                             data_world, model_parallel)
+from ..parallel.mesh import (all_reduce_gradient, build_kernels_once, data_rank, data_world,
+                             gradient_group, gradient_world, model_parallel)
+from ..parallel.spatial import shard_for_the_group
 from ..parallel.tensor import split_for_the_group
 from ..solver import get_optimizer, get_scheduler
 from ..utils import TimeAverager, Timer, calculate_eta, logger
@@ -109,6 +121,17 @@ def make_train_loader(config, dataset, device) -> DataLoader:
                       device=device, shard_index=data_rank(), num_shards=data_world())
 
 
+def spatial_rows(model, batch: dict) -> dict:
+    """``batch`` as a rank of a spatially sharded ``model`` trains on it: its
+    block of the image rows and label rows (the batch itself for a whole
+    model)."""
+    shard = getattr(model, "spatial", None)
+    if shard is None:
+        return batch
+    return {"image": batch["image"][:, :, shard.rows(batch["image"].shape[2])],
+            "label": batch["label"][:, shard.rows(batch["label"].shape[1])]}
+
+
 def main(argv=None) -> dict:
     """Train; returns a summary: the first and last iteration of this run,
     the steps it took, the model forwards of its evaluations and of its
@@ -122,7 +145,8 @@ def main(argv=None) -> dict:
         config.TRAIN.ITERS = args.iters
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (use --device cpu)")
-    with distributed(args.device) as device, model_parallel(config.PARALLEL.MODEL):
+    with distributed(args.device) as device, model_parallel(config.PARALLEL.MODEL,
+                                                           config.PARALLEL.SPATIAL):
         return _train(args, config, device)
 
 
@@ -142,6 +166,7 @@ def _train(args, config, device) -> dict:
     # counts the whole model: taken before the split
     cost = forward_cost(model, (1, 3, *config.DATA.CROP_SIZE), device) if is_main() else None
     split_for_the_group(config, model)
+    shard_for_the_group(model)
     if world > 1:
         convert_sync_batchnorm(model)
     schedule = get_scheduler(config)
@@ -162,12 +187,12 @@ def _train(args, config, device) -> dict:
         start_iter = ckpt.restore(model, optimizer)
         loader.start_iter = start_iter
     trained = model
-    if n_data > 1:
+    if gradient_world() > 1:
         # BatchNorm statistics are equal on every rank (SyncBatchNorm):
         # nothing to broadcast
         trained = DistributedDataParallel(
             model, device_ids=[device] if device.type == "cuda" else None,
-            broadcast_buffers=False, process_group=data_group(),
+            broadcast_buffers=False, process_group=gradient_group(),
             find_unused_parameters=getattr(model, "ddp_find_unused_parameters", False))
     train_step = make_train_step(trained, loss_fn, optimizer)
     summary = {"start_iter": start_iter, "last_iter": start_iter, "steps": 0,
@@ -186,7 +211,7 @@ def _train(args, config, device) -> dict:
         reader_cost.record(timer.restart())
         it += 1
         torch.manual_seed(step_seed(config.SEED, it, data_rank(), n_data))
-        window_losses.append(train_step(batch))
+        window_losses.append(train_step(spatial_rows(model, batch)))
         summary["steps"] += 1
         log_now = it % config.LOGGING_INFO_FREQ == 0 or it == config.TRAIN.ITERS
         if log_now and device.type == "cuda":
@@ -194,8 +219,9 @@ def _train(args, config, device) -> dict:
         batch_cost.record(timer.restart(), num_samples=batch_size * n_data)
 
         if log_now:
-            # each rank's loss is N x its share of its data group's global batch
-            avg_loss = (all_reduce_data(torch.stack(window_losses).mean()) / n_data).item()
+            # each rank's loss is N x its share of its gradient group's global batch
+            avg_loss = (all_reduce_gradient(torch.stack(window_losses).mean())
+                        / gradient_world()).item()
             window_losses = []
             summary["losses"].append(avg_loss)
             eta = calculate_eta(config.TRAIN.ITERS - it, batch_cost.get_average())

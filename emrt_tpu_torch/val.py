@@ -18,6 +18,9 @@ evaluation is sharded over the data ranks, as ``train``'s evaluation runs
 (the JAX ``val.py:53-61`` builds the mesh and leaves the parameters
 replicated: the same numbers): ``torchrun --nproc_per_node 4 -m
 emrt_tpu_torch.val --config <yaml> --model_path best_model.pt PARALLEL.MODEL 2``.
+With PARALLEL.SPATIAL = S > 1 the whole model runs on every rank and the
+evaluation is sharded over the data ranks only (the S ranks of a spatial
+group repeat it), as the JAX package evaluates under a spatial mesh.
 """
 from __future__ import annotations
 
@@ -58,7 +61,8 @@ def main(argv=None):
     config = update_config(get_config(), args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (use --device cpu)")
-    with distributed(args.device) as device, model_parallel(config.PARALLEL.MODEL):
+    with distributed(args.device) as device, model_parallel(config.PARALLEL.MODEL,
+                                                           config.PARALLEL.SPATIAL):
         return _validate(args, config, device)
 
 

@@ -14,7 +14,7 @@ inputs:
   JAX loss of the global batch, within 1e-6 relative;
 - the train CLI's loader on each rank against the JAX ``DataLoader`` of
   the same shard, bit for bit;
-- PARALLEL.SPATIAL > 1, a PARALLEL.MODEL that does not divide one process
+- a PARALLEL.SPATIAL or PARALLEL.MODEL that does not divide one process
   and a PARALLEL.DATA other than the world are refused, and the step seed
   folds in the rank only with two or more;
 - the models that leave a parameter without a gradient in a train step,
@@ -263,10 +263,9 @@ def test_train_loader_of_each_rank_is_the_jax_loaders_shard(start_iter):
 @pytest.mark.parametrize("axis", ["MODEL", "SPATIAL"])
 @pytest.mark.parametrize("cli", ["train", "val"])
 def test_tensor_and_spatial_parallelism_are_refused(axis, cli, tmp_path):
-    # SPATIAL is not ported; a MODEL of 2 does not divide one process
+    # neither a MODEL nor a SPATIAL of 2 divides one process
     main = train_main if cli == "train" else val_main
-    exc = NotImplementedError if axis == "SPATIAL" else ValueError
-    with pytest.raises(exc, match=f"PARALLEL.{axis} 2"):
+    with pytest.raises(ValueError, match=f"PARALLEL.{axis} 2"):
         main(["--config", str(SMOKE), "--device", "cpu", "SAVE_DIR", str(tmp_path),
               f"PARALLEL.{axis}", "2"])
 

@@ -6,8 +6,9 @@ gloo ranks on the CPU (``parallel.launch``; the ranks' halves are in
   ``tp_rule`` splits in the tiny EMRT-R50 (under the ``.pdparams`` key map),
   each rank's shard is the one ``tp_shard_params`` gives its device (through
   ``state_dict_from_flax``), and gathering the shards gives the whole state;
-- ``check_parallel`` refuses SPATIAL > 1, a MODEL that does not divide the
-  world and one that does not divide the heads or the FFN's width;
+- ``check_parallel`` refuses SPATIAL > 1 with MODEL > 1, a MODEL that does
+  not divide the world and one that does not divide the heads or the FFN's
+  width;
 - one train step of the tiny EMRT-R50 on four ranks as dp2 x tp2 against the
   JAX package's step on a ``data=2, model=2`` mesh with ``tp_shard_params``,
   from the same bridged weights and batch as the DP test, with that test's
@@ -121,7 +122,7 @@ def test_the_rule_splits_tp_rules_parameters_into_the_shards_of_each_device():
 
 
 @pytest.mark.parametrize("overrides, world, exc, match", [
-    ({"SPATIAL": 2}, 2, NotImplementedError, "PARALLEL.SPATIAL 2"),
+    ({"SPATIAL": 2, "MODEL": 2}, 4, NotImplementedError, "ROADMAP.md queue 1, item 2"),
     ({"MODEL": 3}, 4, ValueError, "PARALLEL.MODEL 3 does not divide the 4"),
     ({"MODEL": 2, "DATA": 1}, 4, ValueError, "PARALLEL.DATA 1 x PARALLEL.MODEL 2"),
     ({"MODEL": 3}, 3, ValueError, "the 8 heads of model.encoder.layers.0.self_attn"),
