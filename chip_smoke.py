@@ -146,10 +146,40 @@ memory, the memory of the weights, gradients and optimizer state, and the
 activations each region of the model adds in the forward (a memory figure:
 the ranks share one card over gloo). Where there are two cards, (a), (b)
 and (d) run again over NCCL, a card a rank.
+Phase 10 drives tensor x spatial parallelism and the spatial sharding of the
+HRNet and ResNeSt EMRTs at full width and depth with seeded weights, each
+rank a process of its own on the one card over gloo. (a) One float32 dp1 x
+tp2 x sp2 step of the flagship on phase 7's 8 rows (four ranks: the
+transformer split over each model group, 128 of the 256 image rows a
+spatial rank), dropout 0.1, against one process's step (``dp_reference``
+with that dropout), with phase 9 (a)'s checks and bounds, the gradients
+gathered over the model group, the replicated gradients' spread over the
+model group before ``GradientSync`` (TP_SPREAD_TOL), and the gathered
+states and the replicated parameters bitwise equal on the four ranks; (b)
+the same for dp1 x sp2 steps of the HRNet-W48 EMRT
+(EMRT_256x256_160k_potsdam_hrnet.yaml) and of the ResNeSt-50 EMRT, each
+against one process's step of its own; (c) 6 K1 and 6 backward launches
+in each rank's step, at 4 heads under tp2 and 8 in (b), at the full token
+counts (1,344 / 110; the HRNet EMRT's 3,072 / 110); (d) ``torchrun
+--standalone --nproc_per_node 4 -m emrt_tpu_torch.train --device cuda ...
+PARALLEL.MODEL 2 PARALLEL.SPATIAL 2`` for two iterations, then one-process
+``val.main`` on its best_model.pt within 1e-3 of its mIoU; (e) phase 9
+(d)'s bf16 step at 2 x 1024^2 for the HRNet EMRT, one process against each
+dp1 x sp2 rank: ms, peak memory and each region's activations (a memory
+figure: the ranks share one card). Each step of (a) and (b) also prints its
+control: how far one process's own gradient norm moves when its images
+move by one float32 ulp of 1 (relative), the scale of float32 rounding on
+that input; the step's norm is held within SP_NORM_RTOL of one process's,
+or within CONTROL_FACTOR x the control where that is larger. Phases 1 and
+3a also hold the kernels at the HRNet EMRT's calls at a tp2 rank's 4
+heads, and ``time_fwd`` / ``time_bwd`` time them.
 
 Any failed check raises, and the script then exits non-zero without the
 final line. ``python3 chip_smoke.py --tp-step`` runs phase 0 and phase 8's
 dp1 x tp2 step alone, ``--sp-step`` phase 0 and phase 9 without (c),
+``--tpsp-step`` phase 0 and phase 10 without (d), ``--norm-seeds`` phase 0
+and phase 10 (b) from each seed of NORM_SEEDS (every reading printed
+before a check fails),
 ``--train-step`` phase 0 and phase 3c's timing of one process's bf16 bs-8
 train step alone; none prints the final lines. It prints its own time, then a JSON object describing each
 kernel on the second-to-last line; the last line is {"ok": true, "device":
@@ -194,10 +224,12 @@ SHAPES = (("encoder 256^2", LEVELS_256, 1344),
           ("encoder 448^2", LEVELS_448, 4116),
           ("decoder 448^2", LEVELS_448, 110))
 # tensor parallelism (phase 8): a rank of a model group of T runs the
-# flagship's calls at 8 / T heads, T = 2 and 4
+# flagship's calls at 8 / T heads, T = 2 and 4; and the HRNet EMRT's (three
+# 32^2 levels, SHAPES[5:7]) at 4 heads
 TP_HEADS = (4, 2)
 TP_SHAPES = tuple((f"{name} nh {h}", levels, len_q, h) for h in TP_HEADS
-                  for name, levels, len_q in SHAPES[:2])
+                  for name, levels, len_q in SHAPES[:2]) + tuple(
+    (f"{name} nh 4", levels, len_q, 4) for name, levels, len_q in SHAPES[5:7])
 N_IMAGES, IMAGE_SIZE, WINDOW_BATCH = 8, 1024, 32
 # bf16 model logits through K1 against the plain core: K1's f32 sums differ
 # from the plain version's in order only, so some deformable outputs round
@@ -1641,28 +1673,32 @@ def _dp_step(model, cfg, device):
     return make_train_step(ddp, get_loss_function(cfg), optimizer)
 
 
-def dp_reference(path, dropout=0.0):
+def dp_reference(path, dropout=0.0, cfg=None, seed=0, control=False):
     """(a)'s global batch of 8 and one process's float32 step on it (dropout
-    ``dropout``, torch seeded with SP_SEED before it; BatchNorm on batch
-    statistics, through the kernels), saved at ``path`` with the initial
-    weights, its gradients (clipped), running statistics and gradient norm
-    before the clip; phases 8 and 9 take it too (phase 9 with dropout). Rank 1's rows differ from rank 0's in what
-    a data-parallel fault would weigh wrongly: their images have another mean
-    and scale (BatchNorm statistics taken per rank), their labels other
-    classes, and 80-100% of their pixels are ignored (a mean of the ranks'
-    means)."""
+    ``dropout``, torch seeded with SP_SEED + ``seed`` before it; BatchNorm on
+    batch statistics, through the kernels) of the flagship (or of ``cfg``'s
+    model), its weights from torch's seed ``seed``, saved at ``path`` with
+    the initial weights, its gradients (clipped), running statistics and
+    gradient norm before the clip; phases 8, 9 and 10 take it too (9 and 10
+    with dropout, 10 also for the HRNet and ResNeSt EMRTs). With ``control``
+    also the gradient norm of the same step on images moved by CONTROL_EPS
+    relative: how far float32 rounding alone moves the norm. Rank 1's rows
+    differ from rank 0's in what a data-parallel fault would weigh wrongly:
+    their images have another mean and scale (BatchNorm statistics taken per
+    rank), their labels other classes, and 80-100% of their pixels are
+    ignored (a mean of the ranks' means)."""
     import torch
     from emrt_tpu_torch.losses import get_loss_function
     from emrt_tpu_torch.models import get_model
     from emrt_tpu_torch.solver import get_optimizer, get_scheduler
     from emrt_tpu_torch.train import make_train_step
-    cfg = _train_config()
+    cfg = _train_config() if cfg is None else cfg
     cfg.TRAIN.DTYPE = "float32"
-    torch.manual_seed(0)
+    torch.manual_seed(seed)
     model = get_model(cfg, device="cuda", dtype=torch.float32)
     init = {k: v.cpu().clone() for k, v in model.state_dict().items()}
     _set_kernel_and_dropout(model, dropout=dropout)
-    gen = torch.Generator(device="cuda").manual_seed(7)
+    gen = torch.Generator(device="cuda").manual_seed(7 + seed)
     n, (h, w) = DP_WORLD * DP_BS, cfg.DATA.CROP_SIZE
     half = cfg.DATA.NUM_CLASSES // 2
     labels = torch.randint(0, half, (n, h, w), generator=gen, device="cuda")
@@ -1674,15 +1710,23 @@ def dp_reference(path, dropout=0.0):
     batch = {"image": images, "label": torch.where(ignored, 255, labels)}
     optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
     step = make_train_step(model, get_loss_function(cfg), optimizer)
-    torch.manual_seed(SP_SEED)
+    torch.manual_seed(SP_SEED + seed)
     loss = step(batch).item()
+    norm = optimizer.grad_norm.item()
+    grads = torch.cat([p.grad.flatten() for p in model.parameters()]).cpu()
+    stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
+    learned = {n: p.grad.cpu() for n, p in model.named_parameters() if n in LEARNED_REFERENCE}
+    norm_control = None
+    if control:
+        model.load_state_dict(init)
+        optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
+        step = make_train_step(model, get_loss_function(cfg), optimizer)
+        torch.manual_seed(SP_SEED + seed)
+        step({"image": images * (1 + CONTROL_EPS), "label": batch["label"]})
+        norm_control = optimizer.grad_norm.item()
     torch.save({"init": init, "loss": loss, "batch": {k: v.cpu() for k, v in batch.items()},
-                "norm": optimizer.grad_norm.item(),
-                "grads": torch.cat([p.grad.flatten() for p in model.parameters()]).cpu(),
-                "learned_reference": {n: p.grad.cpu() for n, p in model.named_parameters()
-                                      if n in LEARNED_REFERENCE},
-                "stats": {k: v.cpu() for k, v in model.state_dict().items()
-                          if "running" in k}}, path)
+                "norm": norm, "norm_control": norm_control, "dropout_seed": SP_SEED + seed,
+                "grads": grads, "learned_reference": learned, "stats": stats}, path)
     del model, step
     torch.cuda.empty_cache()
     return str(path)
@@ -2361,6 +2405,16 @@ SP_DROPOUT, SP_SEED = 0.1, 11            # (a): dropout on, torch seeded alike e
 # the gradients by 8.8e-4, phase 3b); dropout 0.1 moved the CPU tests' tiny
 # model's norm 2e-4
 SP_NORM_RTOL = 1e-3
+# phase 10's control: one process's step on its images moved by one float32
+# ulp of 1 (relative), otherwise the same; its norm's distance from the
+# step's own is the scale of float32 rounding on that input. Where that
+# scale exceeds SP_NORM_RTOL / CONTROL_FACTOR, the norm is held within
+# CONTROL_FACTOR x it instead: ResNeSt-50's norm, whose gates' BatchNorm1d
+# sees 8 values a channel, moved 1.1e-4 to 1.1e-2 under the control over
+# five seeds, and a sound dp1 x sp2 step's gap read 0.08-2.1x its control
+# where the control exceeded 2e-4 (HRNet-W48 and ResNeSt-50, seeds 0-4,
+# ``--norm-seeds`` on the H100)
+CONTROL_EPS, CONTROL_FACTOR = 2.0 ** -23, 5.0
 # (b): the kernels' calls at the flagship's 8 heads and full token counts
 SP_CALLS = [("bwd", HEADS, 110), ("bwd", HEADS, 1344), ("fwd", HEADS, 110),
             ("fwd", HEADS, 1344)]
@@ -2370,17 +2424,20 @@ SP_LARGE_CROP, SP_LARGE_BS, SP_TIMED = 1024, 2, 3
 SP_TORCHRUN_ITERS = 2
 
 
-def _sp_step(cfg, device, init=None, dropout=None):
-    """The flagship sharded over this rank's spatial group as the train CLI
-    shards it (``shard_model_``, SyncBatchNorm, DDP over the gradient group)
-    and its train step. Returns (model, optimizer, step)."""
+def _grid_step(cfg, device, init=None, dropout=None):
+    """``cfg``'s model split over this rank's model group and sharded over
+    its spatial group as the train CLI does it (``split_model_``, then
+    ``shard_model_``; SyncBatchNorm, DDP over the gradient group,
+    ``GradientSync`` over the model group) and its train step. Returns
+    (model, optimizer, step, names of the split parameters)."""
     import torch
     from torch.nn.parallel import DistributedDataParallel
     from emrt_tpu_torch.losses import get_loss_function
     from emrt_tpu_torch.models import get_model
     from emrt_tpu_torch.parallel import convert_sync_batchnorm
-    from emrt_tpu_torch.parallel.mesh import gradient_group, spatial_group, spatial_rank
-    from emrt_tpu_torch.parallel.spatial import shard_model_
+    from emrt_tpu_torch.parallel.mesh import gradient_group, gradient_world
+    from emrt_tpu_torch.parallel.spatial import shard_for_the_group
+    from emrt_tpu_torch.parallel.tensor import split_for_the_group, splits_of
     from emrt_tpu_torch.solver import get_optimizer, get_scheduler
     from emrt_tpu_torch.train import make_train_step
     dtype = torch.float32 if cfg.TRAIN.DTYPE == "float32" else torch.bfloat16
@@ -2388,12 +2445,13 @@ def _sp_step(cfg, device, init=None, dropout=None):
     if init is not None:
         model.load_state_dict(init)
     _set_kernel_and_dropout(model, dropout=dropout)
-    shard_model_(model, spatial_rank(), SP_WORLD, spatial_group())
+    split = set(splits_of(model)) if cfg.PARALLEL.MODEL > 1 else set()
+    shard_for_the_group(split_for_the_group(cfg, model))
     convert_sync_batchnorm(model)
     optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
-    trained = DistributedDataParallel(model, device_ids=[device], broadcast_buffers=False,
-                                      process_group=gradient_group())
-    return model, optimizer, make_train_step(trained, get_loss_function(cfg), optimizer)
+    trained = model if gradient_world() == 1 else DistributedDataParallel(
+        model, device_ids=[device], broadcast_buffers=False, process_group=gradient_group())
+    return model, optimizer, make_train_step(trained, get_loss_function(cfg), optimizer), split
 
 
 def _large_batch(cfg, device):
@@ -2407,26 +2465,17 @@ def _large_batch(cfg, device):
                                    device=device)}
 
 
-def _large_config():
-    cfg = _train_config()
-    cfg.DATA.CROP_SIZE = (SP_LARGE_CROP, SP_LARGE_CROP)
-    return cfg
-
-
 # (d): the regions of EMRT._forward whose activations the breakdown reads, in
 # the order the forward runs them
 SP_REGIONS = ("backbone", "spatial_branch", "psp_module", "model", "EFP", "cls_psp",
               "uphead", "auxlayer")
 
 
-def large_step_rank(rank, world, devices):
-    """(d) on one rank of dp1 x sp``world`` (one process for ``world`` 1), a
-    fresh process: SP_TIMED bf16 steps of ``_large_batch`` after one
-    warm-up, their median ms (CUDA events) and the peak memory this process
-    allocated over them; the memory the model, its gradients and the
-    optimizer's state hold before a step; and, in the warm-up step, the
-    memory each region of the model (``SP_REGIONS``) added in the forward
-    (its saved activations and outputs), in GiB."""
+def large_step_rank(rank, world, devices, path=str(CONFIG), regions=SP_REGIONS):
+    """Phase 9 (d) (the flagship) and phase 10 (e) (the HRNet EMRT at
+    ``path``) on one rank of dp1 x sp``world`` (one process for ``world``
+    1), a fresh process: ``_measure_large_step`` of the model's bf16 steps
+    at SP_LARGE_BS x SP_LARGE_CROP^2, reading ``regions``."""
     import torch
     from emrt_tpu_torch.losses import get_loss_function
     from emrt_tpu_torch.models import get_model
@@ -2436,7 +2485,9 @@ def large_step_rank(rank, world, devices):
     from emrt_tpu_torch.train.cli import spatial_rows
     device = torch.device(devices[rank])
     torch.cuda.set_device(device)
-    cfg = _large_config()
+    cfg = _variant_config(path)
+    cfg.DATA.CROP_SIZE = (SP_LARGE_CROP, SP_LARGE_CROP)
+    cfg.PARALLEL.SPATIAL = world
     torch.manual_seed(0)
     with model_parallel(1, world):
         if world == 1:
@@ -2444,98 +2495,163 @@ def large_step_rank(rank, world, devices):
             step = make_train_step(model, get_loss_function(cfg),
                                    get_optimizer(cfg, model, get_scheduler(cfg)))
         else:
-            cfg.PARALLEL.SPATIAL = world
-            model, _, step = _sp_step(cfg, device)
+            model, _, step, _ = _grid_step(cfg, device)
         batch = spatial_rows(model, _large_batch(cfg, device))
-        gib = 2 ** 30
-        marks = []
-        hooks = [getattr(model, name).register_forward_hook(
-            lambda *_, name=name: marks.append((name, torch.cuda.memory_allocated(device))))
-            for name in SP_REGIONS]
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated(device)
-        step(batch)                                        # the warm-up step
-        for h in hooks:
-            h.remove()
-        regions, last = {}, before
-        for name, mem in marks:
-            regions[name] = regions.get(name, 0.0) + (mem - last) / gib
-            last = mem
-        torch.cuda.synchronize()
-        state = torch.cuda.memory_allocated(device) / gib  # the weights, gradients, momentum
-        torch.cuda.reset_peak_memory_stats(device)
-        ms = cuda_ms(lambda: step(batch), reps=SP_TIMED, warmup=0)
-        return {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated(device) / gib,
-                "state_gib": state, "regions": regions}
+        return _measure_large_step(model, step, batch, device, regions)
 
 
-def sp_step_rank(rank, world, devices, reference):
-    """(a) and (b) on one rank of dp1 x sp2: one float32 step of the 8 rows
-    at ``reference`` (``dp_reference`` with dropout SP_DROPOUT), this rank's
-    128 of their 256 image rows, with torch seeded as the reference was: its
-    loss as the train CLI logs it (the ranks' mean), gradients, running
-    statistics and gradient norm against the one-process step's, the SHA-256
-    of its whole state after the step, and its kernels' launches, heads and
-    query counts."""
+def _measure_large_step(model, step, batch, device, regions):
+    """SP_TIMED train steps ``step(batch)`` after one warm-up, their median
+    ms (CUDA events) and the peak memory allocated over them; the memory the
+    model, its gradients and the optimizer's state hold before a step; and,
+    in the warm-up step, the memory each of the model's ``regions`` added in
+    the forward (its saved activations and outputs), in GiB."""
+    import torch
+    gib = 2 ** 30
+    marks = []
+    hooks = [model.get_submodule(name).register_forward_hook(
+        lambda *_, name=name: marks.append((name, torch.cuda.memory_allocated(device))))
+        for name in regions]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    step(batch)                                        # the warm-up step
+    for h in hooks:
+        h.remove()
+    found, last = {}, before
+    for name, mem in marks:
+        found[name] = found.get(name, 0.0) + (mem - last) / gib
+        last = mem
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated(device) / gib  # the weights, gradients, momentum
+    torch.cuda.reset_peak_memory_stats(device)
+    ms = cuda_ms(lambda: step(batch), reps=SP_TIMED, warmup=0)
+    return {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated(device) / gib,
+            "state_gib": state, "regions": found}
+
+
+def grid_step_rank(rank, world, devices, reference, grid, path=str(CONFIG), overrides=()):
+    """Phase 9 (a), (b) and phase 10 (a)-(c) on one rank of dp1 x
+    tp``grid[0]`` x sp``grid[1]``: one float32 step of the 8 rows at
+    ``reference`` (``dp_reference`` of the same config with dropout
+    SP_DROPOUT), this rank's block of their rows, with torch seeded as the
+    reference was: its loss as the train CLI logs it (the gradient group's
+    mean), its gradients (the split ones gathered over the model group),
+    running statistics and gradient norm against the one-process step's,
+    the replicated gradients' spread over the model group before
+    ``GradientSync`` gave them model rank 0's, the SHA-256 of the gathered
+    state and of the rank's replicated parameters after the step, its
+    kernels' launches, heads and query counts, and its peak memory; then
+    the median ms of SP_TIMED more steps."""
     import hashlib
 
     import torch
+    import torch.distributed as dist
     from emrt_tpu_torch.parallel.mesh import (all_reduce_gradient, gradient_world,
                                               model_parallel)
+    from emrt_tpu_torch.parallel.tensor import gather_model_state, join_tensor, shard_of, \
+        splits_of
     from emrt_tpu_torch.train.cli import spatial_rows
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(devices[rank])
     torch.cuda.set_device(device)
     ref = torch.load(reference, weights_only=True)
-    cfg = _train_config()
+    cfg = _variant_config(path, overrides)
     cfg.TRAIN.DTYPE = "float32"
-    cfg.PARALLEL.SPATIAL = SP_WORLD
+    cfg.PARALLEL.MODEL, cfg.PARALLEL.SPATIAL = grid
     out = {}
-    with model_parallel(1, SP_WORLD):
-        model, optimizer, step = _sp_step(cfg, device, ref["init"], dropout=SP_DROPOUT)
+    with model_parallel(*grid):
+        model, optimizer, step, split = _grid_step(cfg, device, ref["init"], SP_DROPOUT)
+        if optimizer.sync is not None:
+            optimizer.sync.spread = {}
+        specs = splits_of(model)
         batch = spatial_rows(model, {k: v.to(device) for k, v in ref["batch"].items()})
         out["rows"] = tuple(batch["image"].shape[2:])
         calls = set()
         _record_heads(calls, queries=True)
-        torch.manual_seed(SP_SEED)
+        torch.manual_seed(ref["dropout_seed"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
         _reset_counts()
         loss = step(batch)
         torch.cuda.synchronize()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
         out["launches_a"], out["calls"] = _counts(), sorted(calls)
         out["loss"] = (all_reduce_gradient(loss.clone()) / gradient_world()).item()
         out["loss_ref"] = ref["loss"]
         out["norm"], out["norm_ref"] = optimizer.grad_norm.item(), ref["norm"]
-        grads = torch.cat([p.grad.flatten() for p in model.parameters()]).cpu()
+        out["norm_control"] = ref["norm_control"]
+        out["spread"], out["n_spread"] = ("n/a", 0.0), 0
+        if optimizer.sync is not None:
+            spread = optimizer.sync.spread
+            gmax = {n: p.grad.abs().max().item() for n, p in model.named_parameters()
+                    if n in spread}
+            top = max(gmax.values())
+            held = {n: v for n, v in spread.items() if gmax[n] >= TP_SPREAD_FLOOR * top}
+            out["spread"], out["n_spread"] = max(held.items(), key=lambda kv: kv[1]), len(held)
+        shard, grads = shard_of(model), []
+        for name, p in model.named_parameters():
+            g = p.grad.contiguous()
+            if name in split:
+                parts = [torch.empty_like(g) for _ in range(shard.world)]
+                dist.all_gather(parts, g, group=shard.group)
+                g = join_tensor(parts, specs[name])
+            grads.append(g.flatten())
+        grads = torch.cat(grads).cpu()
         out["grad_rel"] = ((grads - ref["grads"]).norm() / ref["grads"].norm()).item()
         stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
         out["stats_rel"] = max(((stats[k] - v).abs().max() / v.abs().max()).item()
                                for k, v in ref["stats"].items())
-        out["n_stats"] = len(stats)
+        out["n_stats"], out["n_split"] = len(stats), len(split)
         digest = hashlib.sha256()
-        for value in model.state_dict().values():
+        for value in gather_model_state(model).values():
             digest.update(value.cpu().numpy().tobytes())
         out["state_sha256"] = digest.hexdigest()
+        digest = hashlib.sha256()
+        for name, p in model.named_parameters():
+            if name not in split:
+                digest.update(p.detach().cpu().numpy().tobytes())
+        out["replicated_sha256"] = digest.hexdigest()
+        out["step_ms"] = cuda_ms(lambda: step(batch), reps=SP_TIMED, warmup=0)
+        del model, optimizer, step, grads
+        torch.cuda.empty_cache()
     return out
 
 
-def sp_step_failures(out) -> list[str]:
-    """The checks of (a) and (b) that ``sp_step_rank``'s result fails."""
-    checks = (
+def norm_tol(out) -> float:
+    """The bound on ``grid_step_rank``'s gradient norm against one
+    process's: SP_NORM_RTOL, or CONTROL_FACTOR x the reference's control
+    where that is larger."""
+    if out["norm_control"] is None:
+        return SP_NORM_RTOL
+    control = abs(out["norm_control"] - out["norm_ref"]) / out["norm_ref"]
+    return max(SP_NORM_RTOL, CONTROL_FACTOR * control)
+
+
+def grid_step_failures(out, calls) -> list[str]:
+    """The checks that ``grid_step_rank``'s result fails, its kernels'
+    calls to be ``calls``; under tp also the replicated gradients' spread
+    over the model group."""
+    checks = [
         (out["rows"] == (128, 256), f"a rank trained on {out['rows']} image rows x columns"),
         (abs(out["loss"] - out["loss_ref"]) <= DP_LOSS_RTOL * abs(out["loss_ref"]),
-         f"SP loss {out['loss']} vs one process's {out['loss_ref']} (rtol {DP_LOSS_RTOL})"),
+         f"loss {out['loss']} vs one process's {out['loss_ref']} (rtol {DP_LOSS_RTOL})"),
         (out["grad_rel"] <= TRAIN_BN_GRAD_RTOL,
-         f"SP gradients differ by {out['grad_rel']} (L2, tol {TRAIN_BN_GRAD_RTOL})"),
+         f"gradients differ by {out['grad_rel']} (L2, tol {TRAIN_BN_GRAD_RTOL})"),
         (out["n_stats"] > 100 and out["stats_rel"] <= DP_STATS_TOL,
          f"running statistics differ by {out['stats_rel']} x max (tol {DP_STATS_TOL})"),
-        (abs(out["norm"] - out["norm_ref"]) <= SP_NORM_RTOL * out["norm_ref"],
+        (abs(out["norm"] - out["norm_ref"]) <= norm_tol(out) * out["norm_ref"],
          f"gradient norm {out['norm']} vs one process's {out['norm_ref']} "
-         f"(rtol {SP_NORM_RTOL})"),
+         f"(rtol {norm_tol(out):.3e})"),
         (tuple(out["launches_a"]) == (6, 6),
-         f"an SP step launched forward/backward {out['launches_a']}"),
-        (out["calls"] == SP_CALLS, f"the kernels ran as {out['calls']}, not {SP_CALLS} "
-                                   f"(kind, heads, queries)"))
+         f"a step launched forward/backward {out['launches_a']}"),
+        (out["calls"] == calls, f"the kernels ran as {out['calls']}, not {calls} "
+                                f"(kind, heads, queries)")]
+    if out["n_split"]:
+        checks += [(out["n_spread"] > 300 and out["spread"][1] <= TP_SPREAD_TOL,
+                    f"the replicated gradient {out['spread'][0]} differs over the model group "
+                    f"by {out['spread'][1]} x its max (tol {TP_SPREAD_TOL})"),
+                   (out["n_split"] == 4 * 6 + 2 * 3, f"{out['n_split']} split parameters")]
     return [what for ok, what in checks if not ok]
 
 
@@ -2544,8 +2660,9 @@ def phase9_step(backend, devices, reference):
     Returns the kernels' launches in the ranks' (a) steps."""
     from emrt_tpu_torch.parallel.launch import run_ranks
     t0 = time.perf_counter()
-    ranks = run_ranks(sp_step_rank, SP_WORLD, args=(devices[:SP_WORLD], reference),
-                      backend=backend, timeout=900)
+    ranks = run_ranks(grid_step_rank, SP_WORLD,
+                      args=(devices[:SP_WORLD], reference, (1, SP_WORLD)), backend=backend,
+                      timeout=900)
     leg = f"phase 9 ({backend})"
     print(f"{leg}: dp1 x sp{SP_WORLD} on {', '.join(devices[:SP_WORLD])}: the ranks ran in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2558,7 +2675,7 @@ def phase9_step(backend, devices, reference):
               f"norm before the clip {out['norm']:.9g} against {out['norm_ref']:.9g} (rtol "
               f"{SP_NORM_RTOL}); (b) launches forward/backward {out['launches_a']}, calls "
               f"(kind, heads, queries) {out['calls']}")
-        failures = sp_step_failures(out)
+        failures = grid_step_failures(out, SP_CALLS)
         check(not failures, f"rank {r}: {'; '.join(failures)}")
     check(len({out["state_sha256"] for out in ranks}) == 1,
           "the ranks' parameters and buffers differ after the dropout step")
@@ -2567,27 +2684,30 @@ def phase9_step(backend, devices, reference):
     return tuple(sum(out["launches_a"][i] for out in ranks) for i in range(2))
 
 
-def phase9_memory(card, backend, devices):
-    """(d): one process's bf16 step at the large crop and a dp1 x sp2 rank's,
-    each in fresh processes; prints their times, peak memory and breakdown."""
+def large_step_memory(card, leg, backend, devices, path=str(CONFIG), regions=SP_REGIONS):
+    """Phase 9 (d) and phase 10 (e): one process's bf16 step of the model at
+    ``path`` at the large crop and a dp1 x sp2 rank's, each in fresh
+    processes; prints their times, peak memory and breakdown. Returns the
+    ratio of the peaks."""
     from emrt_tpu_torch.parallel.launch import run_ranks
-    leg = f"phase 9 ({backend})"
-    one = run_ranks(large_step_rank, 1, args=(devices[:1],), backend=backend, timeout=600)[0]
-    ranks = run_ranks(large_step_rank, SP_WORLD, args=(devices[:SP_WORLD],), backend=backend,
-                      timeout=600)
+    one = run_ranks(large_step_rank, 1, args=(devices[:1], str(path), regions),
+                    backend=backend, timeout=600)[0]
+    ranks = run_ranks(large_step_rank, SP_WORLD, args=(devices[:SP_WORLD], str(path), regions),
+                      backend=backend, timeout=600)
     note = ("the ranks share one card over gloo: agreement and memory figures, not scaling"
             if len(set(devices[:SP_WORLD])) == 1 else "one card a rank")
     for who, out in [("one process", one)] + [(f"rank {r}", o) for r, o in enumerate(ranks)]:
-        regions = ", ".join(f"{k} {v:.3f}" for k, v in out["regions"].items())
-        print(f"{leg}: (d) {who}: bf16 step of {SP_LARGE_BS} x {SP_LARGE_CROP}^2 crops"
+        found = ", ".join(f"{k} {v:.3f}" for k, v in out["regions"].items())
+        print(f"{leg} {who}: bf16 step of {SP_LARGE_BS} x {SP_LARGE_CROP}^2 crops"
               f"{'' if who == 'one process' else f' ({SP_LARGE_CROP // SP_WORLD} rows a rank)'}: "
               f"{out['ms']:.2f} ms (median of {SP_TIMED}, CUDA events), peak memory "
               f"{out['peak_gib']:.3f} GiB, of which weights, gradients and optimizer state "
-              f"{out['state_gib']:.3f}; the forward's activations by region (GiB): {regions} "
+              f"{out['state_gib']:.3f}; the forward's activations by region (GiB): {found} "
               f"({card}{'' if who == 'one process' else '; ' + note})")
     peak = max(out["peak_gib"] for out in ranks)
-    print(f"{leg}: (d) peak memory a rank / one process's: {peak / one['peak_gib']:.3f} "
+    print(f"{leg}: peak memory a rank / one process's: {peak / one['peak_gib']:.3f} "
           f"({peak:.3f} / {one['peak_gib']:.3f} GiB; {card})")
+    return peak / one["peak_gib"]
 
 
 def phase9_torchrun(save_dir):
@@ -2595,33 +2715,42 @@ def phase9_torchrun(save_dir):
     --device cuda ... PARALLEL.SPATIAL 2`` for two iterations with a save
     and an eval, then one-process ``val.main`` on its best_model.pt against
     the run's mIoU."""
+    _torchrun_and_val(save_dir, "phase 9 (c)", SP_WORLD, SP_TORCHRUN_ITERS,
+                      ["PARALLEL.SPATIAL", str(SP_WORLD)], [f"spatial axis = {SP_WORLD}"])
+
+
+def _torchrun_and_val(save_dir, leg, nproc, iters, opts, logged):
+    """``torchrun --standalone --nproc_per_node nproc -m emrt_tpu_torch.train
+    --device cuda ...`` on the flagship with the config overrides ``opts``
+    for ``iters`` iterations with a save and an eval (its log must hold the
+    strings ``logged``), then one-process ``val.main`` on its best_model.pt
+    against the run's mIoU."""
     import json
 
     from emrt_tpu_torch.val import main as val_main
     launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-              "--nproc_per_node", str(SP_WORLD), "-m", "emrt_tpu_torch.train"]
+              "--nproc_per_node", str(nproc), "-m", "emrt_tpu_torch.train"]
     t0 = time.perf_counter()
     out = _run_group([*launch, "--config", str(CONFIG), "--device", "cuda", "--iters",
-                      str(SP_TORCHRUN_ITERS), "--seed", "0", "DATA.DATASET", "Synthetic",
+                      str(iters), "--seed", "0", "DATA.DATASET", "Synthetic",
                       "DATA.BATCH_SIZE", str(TRAIN_BS), "TRAIN.DTYPE", "bfloat16",
-                      "SAVE_DIR", save_dir, "LOGGING_INFO_FREQ", "1",
-                      "PARALLEL.SPATIAL", str(SP_WORLD)], timeout=600)
-    check(f"ranks: {SP_WORLD}" in out and f"spatial axis = {SP_WORLD}" in out
-          and f"training done at iter {SP_TORCHRUN_ITERS}" in out,
-          f"torchrun train.main PARALLEL.SPATIAL {SP_WORLD}:\n{out[-4000:]}")
+                      "SAVE_DIR", save_dir, "LOGGING_INFO_FREQ", "1", *opts], timeout=600)
+    check(f"ranks: {nproc}" in out and all(x in out for x in logged)
+          and f"training done at iter {iters}" in out,
+          f"torchrun train.main {' '.join(opts)}:\n{out[-4000:]}")
     losses = re.findall(r"loss: ([0-9.na]+)", out)
-    check(len(losses) == SP_TORCHRUN_ITERS and all(float(x) == float(x) for x in losses),
+    check(len(losses) == iters and all(float(x) == float(x) for x in losses),
           f"losses {losses}")
     best = json.loads((Path(save_dir) / "best_model.json").read_text())["best_miou"]
     result = val_main(["--config", str(CONFIG), "--device", "cuda", "--model_path",
                        str(Path(save_dir) / "best_model.pt"), "DATA.DATASET", "Synthetic",
                        "TRAIN.DTYPE", "bfloat16"])
-    print(f"phase 9 (c): torchrun --nproc_per_node {SP_WORLD} train.main --device cuda "
-          f"PARALLEL.SPATIAL {SP_WORLD}, {SP_TORCHRUN_ITERS} iterations with a save and an eval, "
-          f"in {time.perf_counter() - t0:.1f} s: losses {losses}; one-process val.main on its "
+    print(f"{leg}: torchrun --nproc_per_node {nproc} train.main --device cuda "
+          f"{' '.join(opts)}, {iters} iterations with a save and an eval, in "
+          f"{time.perf_counter() - t0:.1f} s: losses {losses}; one-process val.main on its "
           f"best_model.pt: mIoU {result['miou']:.6f} against the run's {best:.6f}")
     check(abs(result["miou"] - best) <= F6_MIOU_TOL,
-          f"val.main gives mIoU {result['miou']}, the SP run {best}")
+          f"val.main gives mIoU {result['miou']}, the run {best}")
 
 
 def phase9(card, torchrun=True):
@@ -2643,7 +2772,7 @@ def phase9(card, torchrun=True):
         for backend, devices in legs:
             got = phase9_step(backend, devices, reference)
             launches = tuple(a + b for a, b in zip(launches, got))
-            phase9_memory(card, backend, devices)
+            large_step_memory(card, f"phase 9 ({backend}) (d)", backend, devices)
         if torchrun:
             phase9_torchrun(str(Path(tmp) / "torchrun"))
     if torch.cuda.device_count() < SP_WORLD:
@@ -2651,6 +2780,130 @@ def phase9(card, torchrun=True):
               f"needs {SP_WORLD}")
     print(f"phase 9: K1 / K2-K3 launches in the ranks' (a) steps: {launches}")
     return launches
+
+
+# ------------------------------------------------------- phase 10: TP x SP
+
+TPSP_GRID = (2, 2)                       # (a), (d): dp1 x tp2 x sp2 (model, spatial)
+TPSP_WORLD = TPSP_GRID[0] * TPSP_GRID[1]
+# (a): the kernels' calls of a rank: 4 heads (tp2), the full token counts
+TPSP_CALLS = [("bwd", HEADS // TPSP_GRID[0], 110), ("bwd", HEADS // TPSP_GRID[0], 1344),
+              ("fwd", HEADS // TPSP_GRID[0], 110), ("fwd", HEADS // TPSP_GRID[0], 1344)]
+HRNET_YAML = ROOT / "configs" / "EMRT" / "EMRT_256x256_160k_potsdam_hrnet.yaml"
+# (b): dp1 x sp2 of the other convolutional backbones: (name, yaml, config
+# overrides, the encoder's queries at 256^2, 8 heads)
+SP_BACKBONES = (("HRNet-W48", HRNET_YAML, {}, 3072),
+                ("ResNeSt-50", CONFIG, {"MODEL.ENCODER.TYPE": "resnest50"}, 1344))
+# (e): the HRNet EMRT's regions, as phase 9 (d) reads the flagship's
+HRNET_REGIONS = ("backbone", "input_proj.0", "input_proj.1", "input_proj.2", "spatial_branch",
+                 "psp_module", "model", "EFP", "cls_psp", "uphead", "auxlayer")
+TPSP_TORCHRUN_ITERS = 2
+NORM_SEEDS = (0, 1, 2, 3, 4)             # ``--norm-seeds``: (b) from each
+
+
+def phase10_step(card, what, reference, grid, calls, path=str(CONFIG), overrides=(),
+                 strict=True):
+    """(a) or (b): ``grid`` = (model, spatial) ranks on the first card over
+    gloo, each rank's step against ``reference``'s (a ``dp_reference`` with
+    its control). Prints every rank's readings, then fails on the checks
+    that any rank failed (with ``strict`` False returns them instead).
+    Returns the launches of the ranks' steps and their failures."""
+    from emrt_tpu_torch.parallel.launch import run_ranks
+    n = grid[0] * grid[1]
+    devices = ["cuda:0"] * n
+    t0 = time.perf_counter()
+    ranks = run_ranks(grid_step_rank, n, args=(devices, reference, grid, str(path), overrides),
+                      timeout=900)
+    tag = f"dp1 x tp{grid[0]} x sp{grid[1]}" if grid[0] > 1 else f"dp1 x sp{grid[1]}"
+    print(f"phase 10 {what}: {tag} on {', '.join(devices)} (the ranks share one card over "
+          f"gloo: an agreement figure, not scaling; {card}): the ranks ran in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for r, out in enumerate(ranks):
+        spread = (f"; largest spread of {out['n_spread']} replicated gradients over the model "
+                  f"group before the overwrite {out['spread'][1]:.3e} x max ({out['spread'][0]}, "
+                  f"tol {TP_SPREAD_TOL}); {out['n_split']} split parameters"
+                  if out["n_split"] else "")
+        print(f"phase 10 {what}: rank {r} float32 step of 8 x {out['rows']} rows x columns, "
+              f"dropout {SP_DROPOUT}: loss {out['loss']:.9g} against one process's "
+              f"{out['loss_ref']:.9g} (rtol {DP_LOSS_RTOL}); gradients |grid-one|/|one| (L2) "
+              f"{out['grad_rel']:.3e} (tol {TRAIN_BN_GRAD_RTOL}); BatchNorm running statistics "
+              f"within {out['stats_rel']:.3e} x max (tol {DP_STATS_TOL}); gradient norm before "
+              f"the clip {out['norm']:.9g} against {out['norm_ref']:.9g}, "
+              f"{abs(out['norm'] - out['norm_ref']) / out['norm_ref']:.3e} apart (rtol "
+              f"{norm_tol(out):.3e}; one process's control, its images moved by "
+              f"{CONTROL_EPS:.3g}: "
+              f"{abs(out['norm_control'] - out['norm_ref']) / out['norm_ref']:.3e} apart)"
+              f"{spread}; (c) launches forward/backward {out['launches_a']}, calls (kind, "
+              f"heads, queries) {out['calls']}")
+    failures = [f"phase 10 {what} rank {r}: {f}" for r, out in enumerate(ranks)
+                for f in grid_step_failures(out, calls)]
+    if len({out["state_sha256"] for out in ranks}) != 1:
+        failures.append(f"phase 10 {what}: the ranks' gathered states differ after the step")
+    if len({out["replicated_sha256"] for out in ranks}) != 1:
+        failures.append(f"phase 10 {what}: the ranks' replicated parameters differ after the "
+                        f"step")
+    if strict:
+        check(not failures, "; ".join(failures))
+    print(f"phase 10 {what}: after the dropout step the gathered states and the replicated "
+          f"parameters are bitwise equal on the {n} ranks (sha256 "
+          f"{ranks[0]['state_sha256'][:16]}, {ranks[0]['replicated_sha256'][:16]})")
+    step_ms = ", ".join(f"{out['step_ms']:.2f}" for out in ranks)
+    peaks = ", ".join(f"{out['peak_gib']:.3f}" for out in ranks)
+    print(f"phase 10 {what}: float32 steps a rank {step_ms} ms (median of {SP_TIMED}, CUDA "
+          f"events), peak memory {peaks} GiB ({card}; the ranks share one card over gloo: "
+          f"not a scaling figure)")
+    return tuple(sum(out["launches_a"][i] for out in ranks) for i in range(2)), failures
+
+
+def phase10_backbone(card, tmp, name, path, overrides, len_q, seed=0, strict=True):
+    """(b) for one of SP_BACKBONES, its weights, batch and dropout from
+    ``seed``: ``phase10_step`` at dp1 x sp2 against one process's step."""
+    pairs = tuple(overrides.items())
+    reference = dp_reference(Path(tmp) / f"{name}.pt", dropout=SP_DROPOUT,
+                             cfg=_variant_config(path, pairs), seed=seed, control=True)
+    calls = [("bwd", HEADS, 110), ("bwd", HEADS, len_q), ("fwd", HEADS, 110),
+             ("fwd", HEADS, len_q)]
+    tag = f"(b) {name}" + (f" seed {seed}" if seed else "")
+    return phase10_step(card, tag, reference, (1, SP_WORLD), calls, path, pairs, strict)
+
+
+def phase10_torchrun(save_dir):
+    """(d) ``torchrun --standalone --nproc_per_node 4 -m emrt_tpu_torch.train
+    --device cuda ... PARALLEL.MODEL 2 PARALLEL.SPATIAL 2`` for two
+    iterations with a save and an eval, then one-process ``val.main`` on its
+    best_model.pt against the run's mIoU."""
+    _torchrun_and_val(save_dir, "phase 10 (d)", TPSP_WORLD, TPSP_TORCHRUN_ITERS,
+                      ["PARALLEL.MODEL", str(TPSP_GRID[0]), "PARALLEL.SPATIAL",
+                       str(TPSP_GRID[1])],
+                      [f"model axis = {TPSP_GRID[0]}", f"spatial axis = {TPSP_GRID[1]}"])
+
+
+def phase10(card, torchrun=True):
+    """Tensor x spatial parallelism on the flagship, and spatial parallelism
+    of the HRNet and ResNeSt EMRTs, at full width and depth with seeded
+    weights, the ranks on the one card over gloo: (a) dp1 x tp2 x sp2 and
+    (b) dp1 x sp2 steps against one process's, (c) their kernels' launches,
+    (d) the train CLI under torchrun and ``val.main`` on its checkpoint,
+    (e) the HRNet EMRT's peak memory a rank. Returns the forward and
+    backward launches of the ranks' steps and (e)'s ratio."""
+    import tempfile
+
+    import torch
+    torch.cuda.empty_cache()
+    launches = (0, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        reference = dp_reference(Path(tmp) / "flagship.pt", dropout=SP_DROPOUT, control=True)
+        got, _ = phase10_step(card, "(a)", reference, TPSP_GRID, TPSP_CALLS)
+        launches = tuple(a + b for a, b in zip(launches, got))
+        for name, path, overrides, len_q in SP_BACKBONES:
+            got, _ = phase10_backbone(card, tmp, name, path, overrides, len_q)
+            launches = tuple(a + b for a, b in zip(launches, got))
+        ratio = large_step_memory(card, "phase 10 (e) HRNet-W48 EMRT", "gloo",
+                                  ["cuda:0"] * SP_WORLD, HRNET_YAML, HRNET_REGIONS)
+        if torchrun:
+            phase10_torchrun(str(Path(tmp) / "torchrun"))
+    print(f"phase 10: K1 / K2-K3 launches in the ranks' steps: {launches}")
+    return launches, ratio
 
 
 _CATEGORIES = (   # (category, substrings of a kernel's name), first match wins
@@ -2723,21 +2976,36 @@ def main():
 
     import torch
     t_start = time.perf_counter()
+
+    def ended(what):
+        print(f"chip_smoke.py: {what} ended at {time.perf_counter() - t_start:.1f} s")
+
     card = phase0()
     max_err = phase1()
     fwd_times = time_fwd()
+    ended("phase 1 and time_fwd")
     launches = phase2()
     bwd_times, bwd_err = phase3a()
     bwd = bwd_times[SHAPES[0][0], BS, torch.bfloat16]
     phase3b()
+    ended("phases 2-3b")
     with tempfile.TemporaryDirectory() as save_dir:
         train_launches, _ = phase3c(card, save_dir)
+        ended("phase 3c")
         _, variant_launches = phase4(card)
+        ended("phase 4")
         _, inference_launches = phase5(card, save_dir)
+        ended("phase 5")
     phase6(card)
+    ended("phase 6")
     dp_launches = phase7(card)
+    ended("phase 7")
     tp_launches = phase8(card)
+    ended("phase 8")
     sp_launches = phase9(card)
+    ended("phase 9")
+    tpsp_launches, _ = phase10(card)
+    ended("phase 10")
     from emrt_tpu_torch.ops import deformable_cuda
     name, levels, len_q = SHAPES[0]
     fwd = fwd_times[name, BS, torch.bfloat16]
@@ -2745,15 +3013,24 @@ def main():
                                     torch.cuda.get_device_properties(0).multi_processor_count)
     timed_at = f"{name} bs {BS} bf16, random locations"
 
+    def at(times, keys):
+        """The kernel's numbers at each (name, bs) of ``keys`` (bf16, random
+        locations)."""
+        return {f"{key} bs {bs} bf16": {
+            "ms": times[key, bs, torch.bfloat16]["random"],
+            "plain_ms": times[key, bs, torch.bfloat16]["plain"],
+            "bound_ms": times[key, bs, torch.bfloat16]["bound"][0],
+            "bound_by": times[key, bs, torch.bfloat16]["bound"][1]} for key, bs in keys}
+
     def at_tp_heads(times):
-        """The kernel's numbers at the TP ranks' head counts (TP_SHAPES, bs 32,
-        bf16, random locations)."""
-        return {f"{tp_name} bs {BS} bf16": {
-            "ms": times[tp_name, BS, torch.bfloat16]["random"],
-            "plain_ms": times[tp_name, BS, torch.bfloat16]["plain"],
-            "bound_ms": times[tp_name, BS, torch.bfloat16]["bound"][0],
-            "bound_by": times[tp_name, BS, torch.bfloat16]["bound"][1]}
-            for tp_name, *_ in TP_SHAPES}
+        """At the TP ranks' head counts (TP_SHAPES, bs 32)."""
+        return at(times, [(tp_name, BS) for tp_name, *_ in TP_SHAPES])
+
+    def at_hrnet(times):
+        """At the HRNet EMRT's calls (three 32^2 levels, Lq 3,072 and 110):
+        8 heads at bs 32 and 8, 4 heads (a tp2 rank's) at bs 32."""
+        return at(times, [(name, bs) for name, *_ in SHAPES[5:7] for bs in (BS, TRAIN_BS)]
+                  + [(f"{name} nh 4", BS) for name, *_ in SHAPES[5:7]])
 
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -2763,22 +3040,24 @@ def main():
          "launches": launches, "launches_train": train_launches[0],
          "launches_variants": variant_launches[0], "launches_inference": inference_launches,
          "launches_dp": dp_launches[0], "launches_tp": tp_launches[0],
-         "launches_sp": sp_launches[0], "max_abs_err": max_err, "ms": fwd["random"], "ms_on_the_grid": fwd["on the grid"],
+         "launches_sp": sp_launches[0], "launches_tpsp": tpsp_launches[0],
+         "max_abs_err": max_err, "ms": fwd["random"], "ms_on_the_grid": fwd["on the grid"],
          "ms_bs8": fwd_times[name, TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": fwd["plain"], "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
          "library_ms": None, "plan": str(plan), "timed_at": timed_at,
-         "tp_heads": at_tp_heads(fwd_times), "card": card},
+         "tp_heads": at_tp_heads(fwd_times), "hrnet": at_hrnet(fwd_times), "card": card},
         {"name": "ms_deform_attn_bwd", "route": "cuda",
          "source": "emrt_tpu_torch/csrc/ms_deform_attn_bwd.cu",
          "replaces": "emrt_tpu/ops/deformable_pallas.py:200 "
                      "emrt_tpu/ops/deformable_pallas.py:277",
          "launches": train_launches[1], "launches_variants": variant_launches[1],
          "launches_dp": dp_launches[1], "launches_tp": tp_launches[1],
-         "launches_sp": sp_launches[1], "max_abs_err": bwd_err, "ms": bwd["random"], "ms_on_the_grid": bwd["on the grid"],
+         "launches_sp": sp_launches[1], "launches_tpsp": tpsp_launches[1],
+         "max_abs_err": bwd_err, "ms": bwd["random"], "ms_on_the_grid": bwd["on the grid"],
          "ms_bs8": bwd_times[SHAPES[0][0], TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": bwd["plain"], "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],
          "library_ms": None, "timed_at": timed_at, "tp_heads": at_tp_heads(bwd_times),
-         "card": card}]}))
+         "hrnet": at_hrnet(bwd_times), "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2803,6 +3082,30 @@ def main_sp_step():
     print("chip_smoke.py --sp-step: passed")
 
 
+def main_tpsp_step():
+    """``--tpsp-step``: phase 0, then phase 10 without the CLIs ((a), (b), (c)
+    and (e) over gloo, the ranks on the first card)."""
+    card = phase0()
+    phase10(card, torchrun=False)
+    print("chip_smoke.py --tpsp-step: passed")
+
+
+def main_norm_seeds():
+    """``--norm-seeds``: phase 0, then phase 10 (b) from each seed of
+    NORM_SEEDS (the weights, the batch and the dropout masks), every
+    reading printed before the checks fail: the spread of the gradient
+    norm's gap to one process's beside its rounding control."""
+    import tempfile
+    card = phase0()
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in NORM_SEEDS:
+            for backbone in SP_BACKBONES:
+                failures += phase10_backbone(card, tmp, *backbone, seed=seed, strict=False)[1]
+    check(not failures, "; ".join(failures))
+    print("chip_smoke.py --norm-seeds: passed")
+
+
 def main_train_step():
     """``--train-step``: phase 0, then phase 3c's timing of one process's
     bf16 bs-8 train step alone (median of 20)."""
@@ -2812,6 +3115,7 @@ def main_train_step():
 
 if __name__ == "__main__":
     modes = {"--tp-step": main_tp_step, "--sp-step": main_sp_step,
+             "--tpsp-step": main_tpsp_step, "--norm-seeds": main_norm_seeds,
              "--train-step": main_train_step}
     if sys.argv[1:] and sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

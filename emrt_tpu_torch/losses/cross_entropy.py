@@ -20,15 +20,13 @@ same rows). Each rank then returns N x (its rows' sum) / (the global
 count), N the gradient group's ranks, so that the mean of the ranks' losses
 is the global loss and DDP's average of the ranks' gradients is its
 gradient; an all-ignored rank contributes 0. With one rank nothing changes.
-OHEM is not ported under spatial parallelism (``check_parallel``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import (all_reduce_data, all_reduce_gradient, data_rank, data_world,
-                             gradient_world)
+from ..parallel.mesh import all_reduce_gradient, gradient_rank, gradient_world
 
 
 def _mean(total, count):
@@ -104,9 +102,11 @@ class OhemCrossEntropyLoss:
     a boolean filter: with k = min(min_kept, pixels), the k-th smallest
     true-class probability (ignored pixels count as 1) raises the threshold
     to max(kth, thresh); the mean CE over the non-ignored pixels at or
-    below it, divided by max(count, 1). Under data parallelism k and the
-    k-th probability are those of the global flat batch (every rank holds
-    as many pixels)."""
+    below it, divided by max(count, 1). Under data (and spatial)
+    parallelism k and the k-th probability are those of the global flat
+    batch: every rank of the gradient group holds as many pixels, its
+    images' rows or its block of their rows, and ``kthvalue`` needs only
+    the multiset of their probabilities."""
 
     def __init__(self, ignore_index: int = 255, thresh: float = 0.7,
                  min_kept: int = 10000):
@@ -123,10 +123,10 @@ class OhemCrossEntropyLoss:
         nll = -F.log_softmax(logits, dim=1).gather(1, safe)[:, 0]
         true_prob = torch.where(valid, prob, 1.0).flatten()
         every = true_prob
-        if data_world() > 1:      # the data ranks' rows in order, as one flat batch
-            every = true_prob.new_zeros((data_world(), true_prob.numel()))
-            every[data_rank()] = true_prob.detach()
-            every = all_reduce_data(every).flatten()
+        if gradient_world() > 1:      # the gradient group's rows, as one flat batch
+            every = true_prob.new_zeros((gradient_world(), true_prob.numel()))
+            every[gradient_rank()] = true_prob.detach()
+            every = all_reduce_gradient(every).flatten()
         k = min(self.min_kept, every.numel())
         kth = torch.kthvalue(every, k).values
         keep = (true_prob <= kth.clamp(min=self.thresh)) & valid.flatten()

@@ -12,14 +12,19 @@ every conv-BN pair is ``._conv`` / ``._batch_norm``; ``conv_layer1_{1,2}``
 and ``fuse_func.residual_st{n}_{m}_layer_{i}_{j}[_{k}]`` (1-based).
 The stem, the strided transitions and the fuse-down chains pad TF-style
 ("same": (0, 1) for a 3x3 stride-2 conv on an even map), as paddleseg does.
+
+Under a spatial shard (``parallel/spatial.py``) every branch runs on the
+rank's rows at its own resolution (strides 4 to 32): the convs exchange
+halos, the "same" convs by the image's global padding, and the fuse's
+upsamples compute the rank's rows (``SpatialShard.upsample_rows``); the
+maps a fuse adds cover the same rows. Nothing here pools globally.
 """
 from __future__ import annotations
 
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.resize import resize_bilinear
-from ..layers import BatchNorm2d, conv2d
+from ..layers import BatchNorm2d, conv2d, sharded, upsample
 
 
 class ConvBN(nn.Module):
@@ -69,6 +74,8 @@ class HRModule(nn.Module):
     (align_corners False), j < i through a chain of i - j strided 3x3
     conv-BNs (ReLU between them)."""
 
+    spatial = None
+
     def __init__(self, channels, name: str, num_blocks: int = 4):
         super().__init__()
         n = len(channels)
@@ -96,13 +103,14 @@ class HRModule(nn.Module):
             for b in range(self.num_blocks):
                 x = self.branches_func[f"bb_{self.tag}_branch_layer_{i + 1}_{b + 1}"](x)
             ys.append(x)
+        shard = sharded(self)
         outs = []
         for i in range(len(ys)):
             acc = None
             for j, y in enumerate(ys):
                 if j > i:
                     y = self.fuse_func[f"residual_{self.tag}_layer_{i + 1}_{j + 1}"](y)
-                    y = resize_bilinear(y, ys[i].shape[2:])
+                    y = upsample(y, ys[i].shape[2:], shard)
                 for k in range(i - j):
                     y = self.fuse_func[f"residual_{self.tag}_layer_{i + 1}_{j + 1}_{k + 1}"](y)
                 acc = y if acc is None else acc + y
@@ -115,6 +123,7 @@ class HRNet(nn.Module):
 
     def __init__(self, width: int = 48, stage_modules=(1, 4, 3)):
         super().__init__()
+        self.width = width
         chs = [width, 2 * width, 4 * width, 8 * width]
         self.conv_layer1_1 = ConvBN(3, 64, 3, 2, padding="same")
         self.conv_layer1_2 = ConvBN(64, 64, 3, 2, padding="same")
@@ -148,7 +157,3 @@ class HRNet(nn.Module):
         st3 = self._stage(self.st3, st2 + [self.tr2["transition_tr2_layer_3"](st2[-1])])
         st4 = self._stage(self.st4, st3 + [self.tr3["transition_tr3_layer_4"](st3[-1])])
         return c1, st2, st3, st4
-
-
-def hrnet_w48() -> HRNet:
-    return HRNet(width=48)

@@ -8,6 +8,13 @@ ResNet: ``conv1`` / ``bn1`` (ResNeSt's deep stem: ``conv1.{0,1,3,4,6}``),
 ``splat.{fc1,bn,fc2}``. The JAX package has no ``.pdparams`` map for these
 two, so these names are the port's own (``utils/pdparams_maps.py`` bridges
 them from the flax names).
+
+Under a spatial shard (``parallel/spatial.py``) a ResNeSt block's 3x3
+average pool reads the row above from the rank above, and its split
+attention's pooled sum is the whole image's mean (``global_mean``), equal
+on every rank, so the gate after it (its ``BatchNorm1d`` too) runs alike
+on every rank of the group. ResNeXt's grouped convs take the halo rules of
+any conv.
 """
 from __future__ import annotations
 
@@ -15,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import BatchNorm1d, conv2d, kaiming_normal_
+from ..layers import BatchNorm1d, avg_pool_3x3, conv2d, kaiming_normal_, sharded
 from .resnet import ResNet, _bn, _downsample
 
 
@@ -48,6 +55,8 @@ class SplitAttention(nn.Module):
     """ResNeSt split attention over ``radix`` groups of ``features`` channels:
     softmax over the groups of a gate computed from their pooled sum."""
 
+    spatial = None
+
     def __init__(self, features: int, radix: int = 2, reduction: int = 4):
         super().__init__()
         self.radix = radix
@@ -59,7 +68,9 @@ class SplitAttention(nn.Module):
     def forward(self, x):
         b, rc, h, w = x.shape
         splits = x.view(b, self.radix, rc // self.radix, h, w)
-        gap = splits.sum(1).mean((2, 3))                                # [b, c]
+        shard = sharded(self)
+        total = splits.sum(1)
+        gap = total.mean((2, 3)) if shard is None else shard.global_mean(total)   # [b, c]
         att = self.fc2(F.relu(self.bn(self.fc1(gap))))
         att = att.view(b, self.radix, -1).float().softmax(1).to(splits.dtype)
         return torch.einsum("brchw,brc->bchw", splits, att)
@@ -71,6 +82,7 @@ class ResNeStBottleneck(nn.Module):
     ``avg_pool``, torch's ``count_include_pad``), its shortcut with a
     stride x stride average pool before the 1x1 projection."""
     expansion = 4
+    spatial = None
 
     def __init__(self, cin: int, features: int, stride: int = 1, dilation: int = 1,
                  downsample: bool = False, radix: int = 2):
@@ -89,7 +101,7 @@ class ResNeStBottleneck(nn.Module):
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.splat(F.relu(self.bn2(self.conv2(out))))
         if self.stride > 1:
-            out = F.avg_pool2d(out, 3, self.stride, 1)
+            out = avg_pool_3x3(out, self.stride, sharded(self))
         out = self.bn3(self.conv3(out))
         identity = x
         if self.downsample is not None:

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear
 from .backbones.cswin import CSwinTransformer
-from .backbones.hrnet import hrnet_w48
+from .backbones.hrnet import HRNet
 from .backbones.mix_transformer import SegFormerEncoder
 from .backbones.resnet import _DEPTHS, backbone_channels, resnet
 from .backbones.resnext import resnest50, resnext50_64x4d
@@ -39,7 +39,7 @@ from .backbones.vit import ViTEncoder
 from .decoders.fcn_head import FCNHead
 from .deformable_transformer import EncoderDecoder, tokens_to_levels
 from .layers import (AdaptiveAvgPool, BatchNorm2d, ConvBNReLU, RowDropout, halo_rows,
-                     kaiming_normal_, layer_norm, max_pool_3x3s2, sharded)
+                     kaiming_normal_, layer_norm, max_pool_3x3s2, sharded, upsample)
 
 
 class Conv2dBlock(nn.Module):
@@ -154,17 +154,18 @@ class UpHead(nn.Module):
 class EMRT(nn.Module):
     """EMRT assembly (reference :183-304). The ``trans_*`` knobs shape CSwin,
     the ``vit_*`` knobs and ``img_size`` (h, w) ViT, ``output_stride`` the
-    ResNets; the other backbones have fixed widths.
+    ResNets; the other backbones have fixed widths (HRNet-W48).
 
-    With a ResNet backbone the model can be sharded over image rows
-    (``parallel/spatial.py``; ``spatial_stride`` is the deepest stride of
-    its sharded region, None for the other backbones). In training mode
-    under a ``SpatialShard`` (``spatial``) the backbone, the spatial branch,
-    the aux head, ``cls_psp`` and ``uphead`` run on the rank's rows with
-    halo exchanges; their maps are gathered whole for the pyramid pooling,
-    the encoder-decoder and EFP, which every rank of the group runs alike;
-    and the PSP re-broadcast, the fused pyramid and the aux logits come back
-    to the rank's rows. Both outputs are then the rank's rows."""
+    With a ResNet, ResNeXt, ResNeSt or HRNet backbone the model can be
+    sharded over image rows (``parallel/spatial.py``; ``spatial_stride`` is
+    the deepest stride of its sharded region, None for the transformer
+    backbones). In training mode under a ``SpatialShard`` (``spatial``) the
+    backbone (with HRNet's ``input_proj``), the spatial branch, the aux
+    head, ``cls_psp`` and ``uphead`` run on the rank's rows with halo
+    exchanges; their maps are gathered whole for the pyramid pooling, the
+    encoder-decoder and EFP, which every rank of the group runs alike; and
+    the PSP re-broadcast, the fused pyramid and the aux logits come back to
+    the rank's rows. Both outputs are then the rank's rows."""
 
     spatial = None
 
@@ -202,6 +203,7 @@ class EMRT(nn.Module):
             self.variant = "cnn"
             self.backbone = resnext50_64x4d() if name == "resnext50" else resnest50()
             channels = [512, 1024, 2048]
+            self.spatial_stride = 32                 # ResNet(...)'s output stride
         elif name == "cswintransformer":
             self.variant = "taps"
             self.encoder = CSwinTransformer(trans_embed_dim, trans_depths, trans_heads,
@@ -219,12 +221,13 @@ class EMRT(nn.Module):
             channels = [vit_hidden] * (n_taps - 1)
         elif name == "hrnet":
             self.variant = "hrnet"
-            self.backbone = hrnet_w48()
-            w = 48
+            self.backbone = HRNet()
+            w = self.backbone.width
             # each stage's maps concatenated: w(1 + 2 + ...) channels
             self.input_proj = nn.ModuleList(ConvBNReLU(c, 256, 3, stride=2)
                                             for c in (3 * w, 7 * w, 15 * w))
             channels, aux_channels = [256] * 3, 7 * w
+            self.spatial_stride = 32                 # the fourth branch
         elif name == "segformer_b4":
             self.variant = "mit"
             self.backbone = SegFormerEncoder("b4")
@@ -254,7 +257,16 @@ class EMRT(nn.Module):
 
     def spatial_region(self):
         """The modules that run on a rank's rows under a spatial shard."""
-        return (self.backbone, self.spatial_branch, self.auxlayer, self.cls_psp, self.uphead)
+        region = (self.backbone, self.spatial_branch, self.auxlayer, self.cls_psp, self.uphead)
+        return region + ((self.input_proj,) if self.variant == "hrnet" else ())
+
+    def spatial_deepest(self):
+        """The modules of the sharded region that run at its deepest stride
+        (``spatial_stride``): a ResNet's last stage, HRNet's fourth branch."""
+        if self.variant == "hrnet":
+            return [block for module in self.backbone.st4.values()
+                    for key, block in module.branches_func.items() if "_branch_layer_4_" in key]
+        return [self.backbone.layer4]
 
     def forward(self, images):
         with torch.autocast(images.device.type, dtype=torch.bfloat16,
@@ -274,7 +286,8 @@ class EMRT(nn.Module):
             return feats, feats[1]
         if self.variant == "hrnet":
             _, *stages = self.backbone(x)
-            fused = [torch.cat([s[0]] + [resize_bilinear(t, s[0].shape[2:]) for t in s[1:]],
+            shard = sharded(self)
+            fused = [torch.cat([s[0]] + [upsample(t, s[0].shape[2:], shard) for t in s[1:]],
                                dim=1) for s in stages]
             return [proj(f) for proj, f in zip(self.input_proj, fused)], fused[1]
         feats = self.backbone(x)

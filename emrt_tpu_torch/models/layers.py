@@ -12,6 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pooling import adaptive_avg_pool
+from ..ops.resize import resize_bilinear
 
 
 def kaiming_normal_(conv: nn.Conv2d) -> nn.Conv2d:
@@ -64,19 +65,35 @@ class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
     flax's ``BatchNorm`` (ResNeSt's split attention)."""
 
 
+def same_padding(kernel: int, stride: int, dilation: int = 1, size=None) -> tuple[int, int]:
+    """(before, after) padding of a TF-style "SAME" window over ``size``
+    pixels: out = ceil(size / stride), the odd pixel after. ``size`` None
+    means one divisible by ``stride``."""
+    size = stride if size is None else size
+    total = max((-(-size // stride) - 1) * stride + (kernel - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv2dSame(nn.Conv2d):
     """``nn.Conv2d`` with TF-style ``"SAME"`` padding (flax ``padding="SAME"``,
     Paddle ``padding='same'``): out = ceil(in / stride), the padding split with
     the odd pixel at the bottom and right. For kernel 3 and stride 2 on an
-    even map that is (0, 1), not (1, 1)."""
+    even map that is (0, 1), not (1, 1). Under a spatial shard
+    (``parallel/spatial.py``) the rows' padding is the image's, from its
+    global height: a rank reads ``halo_rows`` of its neighbours."""
+
+    spatial = None
 
     def forward(self, x):
-        pads = []
-        for size, k, s, d in zip(reversed(x.shape[2:]), reversed(self.kernel_size),
-                                 reversed(self.stride), reversed(self.dilation)):
-            total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size, 0)
-            pads += [total // 2, total - total // 2]
-        return self._conv_forward(F.pad(x, pads), self.weight, self.bias)
+        (k_h, k_w), (s_h, s_w), (d_h, d_w) = self.kernel_size, self.stride, self.dilation
+        cols = same_padding(k_w, s_w, d_w, x.shape[3])
+        shard = sharded(self)
+        if shard is None:
+            pads = [*cols, *same_padding(k_h, s_h, d_h, x.shape[2])]
+            return self._conv_forward(F.pad(x, pads), self.weight, self.bias)
+        return shard.window(x, lambda t, rows: self._conv_forward(
+            F.pad(t, [*cols, *rows]), self.weight, self.bias), k_h, s_h, d_h,
+            same_padding(k_h, s_h, d_h, x.shape[2] * shard.world))
 
 
 def halo_rows(kernel: int, stride: int, dilation: int, padding: int) -> tuple[int, int]:
@@ -107,8 +124,8 @@ class HaloConv2d(nn.Conv2d):
         shard = sharded(self)
         if shard is None:
             return super().forward(x)
-        return shard.window(x, lambda t, pad: F.conv2d(
-            t, self.weight, self.bias, self.stride, (pad, self.padding[1]), self.dilation,
+        return shard.window(x, lambda t, rows: F.conv2d(
+            t, self.weight, self.bias, self.stride, (rows[0], self.padding[1]), self.dilation,
             self.groups), self.kernel_size[0], self.stride[0], self.dilation[0],
             self.padding[0])
 
@@ -118,8 +135,27 @@ def max_pool_3x3s2(x, shard=None):
     the row above from the rank above (-inf at the image's top)."""
     if shard is None:
         return F.max_pool2d(x, 3, stride=2, padding=1)
-    return shard.window(x, lambda t, pad: F.max_pool2d(t, 3, stride=2, padding=(pad, 1)),
+    return shard.window(x, lambda t, rows: F.max_pool2d(t, 3, stride=2, padding=(rows[0], 1)),
                         3, 2, 1, 1, mode="-inf")
+
+
+def avg_pool_3x3(x, stride: int, shard=None):
+    """``F.avg_pool2d(x, 3, stride, 1)``, whose divisor counts the padding
+    (9 everywhere); over a ``shard``'s rows, the row above from the rank
+    above (zeros at the image's top)."""
+    if shard is None:
+        return F.avg_pool2d(x, 3, stride, 1)
+    return shard.window(x, lambda t, rows: F.avg_pool2d(t, 3, stride, (rows[0], 1)),
+                        3, stride, 1, 1)
+
+
+def upsample(x, size, shard=None):
+    """``resize_bilinear(x, size)`` (align_corners False); over a
+    ``shard``'s rows, ``size`` the rank's and the factor along H an
+    integer, the rank's output rows (``SpatialShard.upsample_rows``)."""
+    if shard is None:
+        return resize_bilinear(x, size)
+    return shard.upsample_rows(x, size)
 
 
 class RowDropout(nn.Dropout):

@@ -23,9 +23,13 @@ nothing communicates.
 Launch: ``torchrun --nproc_per_node 4 -m emrt_tpu_torch.train --config
 <yaml> PARALLEL.MODEL 2`` trains dp2 x tp2 (PARALLEL.DATA -1 or 2);
 ``... --nproc_per_node 2 ... PARALLEL.SPATIAL 2`` trains dp1 x sp2 (an
-EMRT with a ResNet backbone; MODEL stays 1 under SPATIAL, ROADMAP.md queue
-1, item 2). On the CPU the tests run the ranks in processes over gloo
-(``tests/test_torch_{tensor_parallel,spatial}*.py``,
+EMRT with a ResNet, ResNeXt, ResNeSt or HRNet backbone) and
+``... --nproc_per_node 4 ... PARALLEL.MODEL 2 PARALLEL.SPATIAL 2`` dp1 x
+tp2 x sp2: the split transformer runs on the maps each spatial group
+gathers, DDP sums the gradients over the gradient group and the
+optimizer's ``GradientSync`` then works over the model group alone. On the
+CPU the tests run the ranks in processes over gloo
+(``tests/test_torch_{tensor_parallel,spatial,tpsp}*.py``,
 ``parallel.launch.run_ranks``).
 """
 from __future__ import annotations
@@ -86,6 +90,7 @@ class _Grid:
         self.model_rank = r // spatial % model
         self.data_rank = r // (spatial * model)
         self.gradient_world = self.data_world * spatial
+        self.gradient_rank = self.data_rank * spatial + self.spatial_rank
         self.data_group = self.model_group = self.spatial_group = self.gradient_group = None
         self.made = []
         if model == spatial == 1:
@@ -161,6 +166,12 @@ def gradient_world() -> int:
     """The ranks of a gradient group (data x spatial): those whose parameter
     gradients are parts of one sum."""
     return _current().gradient_world
+
+
+def gradient_rank() -> int:
+    """This rank's index in its gradient group (d * SPATIAL + s): the place
+    of its rows in the group's flat batch."""
+    return _current().gradient_rank
 
 
 def data_group():
@@ -280,11 +291,12 @@ def build_kernels_once(model, device):
 def check_parallel(config, world: int, model=None):
     """Refuse a PARALLEL.* layout this port cannot run (the JAX package's
     ``create_mesh`` axes): MODEL x SPATIAL divides the world, DATA is -1 or
-    world / (MODEL x SPATIAL), and MODEL is 1 where SPATIAL is not. Given the
-    model, MODEL must also divide every dimension it splits
-    (``tensor.check_divides``), as JAX's ``device_put`` refuses an uneven
-    split, and SPATIAL must fit it (``spatial.check_spatial``: an EMRT with
-    a ResNet backbone whose deepest sharded rows SPATIAL divides)."""
+    world / (MODEL x SPATIAL). Given the model, MODEL must also divide every
+    dimension it splits (``tensor.check_divides``), as JAX's ``device_put``
+    refuses an uneven split, and SPATIAL must fit it
+    (``spatial.check_spatial``: an EMRT with a convolutional backbone whose
+    deepest sharded rows SPATIAL divides, each rank's at least as many as
+    the deepest halo there)."""
     p = config.PARALLEL
     if p.MODEL < 1 or world % p.MODEL:
         raise ValueError(f"PARALLEL.MODEL {p.MODEL} does not divide the {world} "
@@ -297,14 +309,6 @@ def check_parallel(config, world: int, model=None):
         raise ValueError(f"PARALLEL.DATA {p.DATA} x PARALLEL.MODEL {p.MODEL} x "
                          f"PARALLEL.SPATIAL {p.SPATIAL} does not match the {world} "
                          f"process(es) started (use -1 or {n_data})")
-    if p.SPATIAL > 1 and p.MODEL > 1:
-        raise NotImplementedError(
-            f"PARALLEL.SPATIAL {p.SPATIAL} with PARALLEL.MODEL {p.MODEL}: tensor x spatial "
-            f"parallelism is not ported (ROADMAP.md queue 1, item 2)")
-    if p.SPATIAL > 1 and config.TRAIN.LOSS == "OhemCrossEntropyLoss":
-        raise NotImplementedError(
-            f"PARALLEL.SPATIAL {p.SPATIAL} with OhemCrossEntropyLoss: its k-th probability "
-            f"over the spatial ranks' rows is not ported (ROADMAP.md queue 1, item 3)")
     if model is not None:
         from .tensor import check_divides
         check_divides(model, p.MODEL)

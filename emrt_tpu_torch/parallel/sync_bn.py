@@ -10,7 +10,12 @@ spatial: n is the global N*H*W); a layer of the replicated region holds the
 same whole maps on every rank of a spatial group and stays on the data
 group. Its backward there gets only the rank's rows' part of dy; being
 linear in dy, it passes that part on, and the gather's backward
-(``SpatialShard.gather_rows``) adds the parts.
+(``SpatialShard.gather_rows``) adds the parts. ResNeSt's gate
+(``SyncBatchNorm1d`` over the replicated global mean) is of the replicated
+region too. Under tensor x spatial parallelism the groups are those of the
+rank's model rank: the gradient group of equal m for the sharded region,
+the data group of equal (m, s) for the replicated one, so the running
+statistics come out equal on every rank of a data rank.
 
 flax takes the statistics in float32 in one pass, mean = E[x] and var =
 max(E[x^2] - E[x]^2, 0) (``use_fast_variance``), normalises with that biased

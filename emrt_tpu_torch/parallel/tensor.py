@@ -36,7 +36,12 @@ its shard of those parameters and runs its part of the layer:
   kernel sums in no fixed order (on CUDA the bilinear resize's and the
   deformable core's value gradient add with atomics); and the global norm
   of the clip, each split tensor's square summed over the group and each
-  replicated one counted once.
+  replicated one counted once. Under spatial parallelism too (tp x sp) DDP
+  has already summed every gradient over the gradient group (data x
+  spatial of equal model rank), so the gradients ``GradientSync`` reads are
+  equal on the ranks of that group, and it and the clip's norm work over
+  the model group (the ranks of equal data and spatial rank) alone: each
+  spatial rank's part is counted once, in DDP's sum.
 
 Dropout at a split site draws the mask of the full width and keeps the
 rank's slice (``models/layers.py::split_dropout``), so a split run draws

@@ -35,7 +35,9 @@ sums over the group the gradients of the replicated parameters read on a
 head slice (and gives every other replicated one model rank 0's), then
 clips by the norm of the whole model's gradient: each shard's square summed
 over the group, each replicated tensor counted once, as optax's clip over
-GSPMD's split tree.
+GSPMD's split tree. ``step`` runs after the backward, and DDP's hooks have
+finished their all-reduce over the gradient group by the time
+``backward()`` returns, so the sync reads the summed gradients.
 """
 from __future__ import annotations
 

@@ -35,17 +35,22 @@ the model group) and counts the FLOPs and parameters of the whole model.
 Tensor parallelism: ``torchrun --nproc_per_node 4 -m emrt_tpu_torch.train
 --config <yaml> PARALLEL.MODEL 2`` (dp2 x tp2).
 
-With PARALLEL.SPATIAL = S > 1 (an EMRT with a ResNet backbone, MODEL 1;
-``parallel.check_parallel``) the ranks are laid out as DATA x S, as the
-JAX package places the batch on ``spatial_batch_sharding``: the S ranks of
-a spatial group load their data rank's rows and each trains on its block of
-H / S image and label rows (``parallel.spatial.shard_model_``: halo
-exchanges in the sharded region, the maps gathered for the transformer).
-DDP, the sharded region's BatchNorm and the losses' count run over the
-gradient group (data x spatial), the logged loss is that group's mean, and
-evaluation runs the whole model, sharded over the data ranks only:
-``torchrun --nproc_per_node 2 -m emrt_tpu_torch.train --config <yaml>
-PARALLEL.SPATIAL 2`` (dp1 x sp2).
+With PARALLEL.SPATIAL = S > 1 (an EMRT with a ResNet, ResNeXt, ResNeSt or
+HRNet backbone; ``parallel.check_parallel``) the ranks are laid out as DATA
+x MODEL x S, as the JAX package places the batch on
+``spatial_batch_sharding``: the S ranks of a spatial group load their data
+rank's rows and each trains on its block of H / S image and label rows
+(``parallel.spatial.shard_model_``: halo exchanges in the sharded region,
+the maps gathered for the transformer). DDP, the sharded region's
+BatchNorm and the losses' count (OHEM's k-th probability too) run over the
+gradient group (data x spatial of equal model rank), the logged loss is
+that group's mean, and evaluation runs the whole model, sharded over the
+data ranks only: ``torchrun --nproc_per_node 2 -m emrt_tpu_torch.train
+--config <yaml> PARALLEL.SPATIAL 2`` (dp1 x sp2). Both compose: the model is
+split, then sharded, and ``GradientSync`` works over the model group after
+DDP's sum over the gradient group: ``torchrun --nproc_per_node 4 -m
+emrt_tpu_torch.train --config configs/EMRT/EMRT_256x256_160k_potsdam.yaml
+PARALLEL.MODEL 2 PARALLEL.SPATIAL 2`` (dp1 x tp2 x sp2).
 """
 from __future__ import annotations
 

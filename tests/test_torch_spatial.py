@@ -2,21 +2,30 @@
 op by op, on gloo ranks on the CPU (``parallel.launch``; the ranks' halves
 are in ``test_torch_spatial_ranks.py``):
 
-- each halo op of a ResNet EMRT's sharded region (every conv shape: the
-  7x7 s2 stem, 3x3 s2, 3x3, the dilation-2 and -4 3x3s, the 1x1 s2
-  downsample, 1x1; the 3x3 s2 max pool; uphead's 2x resize, with the edge
-  row at the image's edges) over S = 2 and 4 ranks of 16 / S rows, and the
-  align_corners=True resize of a replicated map to the rank's rows, against
-  the whole-image op: the ranks' outputs and input gradients are the
-  whole one's rows (the row resize's input gradients, of the replicated
-  map, summed over the ranks), their weight gradients sum to the whole
+- each halo op of a convolutional EMRT's sharded region (every conv shape
+  of a ResNet: the 7x7 s2 stem, 3x3 s2, 3x3, the dilation-2 and -4 3x3s,
+  the 1x1 s2 downsample, 1x1; HRNet's TF-style "same" 3x3 s2 conv; the 3x3
+  s2 max pool; ResNeSt's 3x3 s2 average pool, its divisor counting the
+  padding; uphead's 2x resize, with the edge row at the image's edges;
+  HRNet's align_corners=False x2, x4 and x8 upsamples) over S = 2 and 4
+  ranks, the align_corners=True resize of a replicated map to the rank's
+  rows, and ResNeSt's global mean with the gate's BatchNorm1d after it (a
+  replicated output, each rank's loss holding an unequal share of its
+  gradient), against the whole-image op: the ranks' outputs and input
+  gradients are the whole one's rows (the row resize's input gradients, of
+  the replicated map, summed over the ranks; the global mean's outputs the
+  whole one's on every rank), their weight gradients sum to the whole
   one's; float32, each within 1e-6 of the whole one's L2 norm, a conv's
   bias gradient within ``BIAS_TOL``;
+- a rank's own "same" padding ((0, 1) on every block of an even number of
+  rows) is wrong inside the image: its last row must read the next rank's
+  first row;
 - the grid: rank r = (d * MODEL + m) * SPATIAL + s and its groups;
-- ``check_parallel`` accepts SPATIAL 2 for the flagship EMRT-R50 at a 256
-  crop and refuses it with MODEL > 1, with another backbone, with OHEM,
-  where it does not divide the rows at the output stride, and where a
-  dilated conv's halo is deeper than a rank's rows.
+- ``check_parallel`` accepts SPATIAL 2 for the ResNet, ResNeXt, ResNeSt and
+  HRNet EMRTs at a 256 crop, with MODEL 2 on four ranks and with OHEM, and
+  refuses it for the CSwin, ViT and SegFormer-B4 EMRTs and the zoo, where
+  it does not divide the rows at the output stride, and where a dilated
+  conv's halo is deeper than a rank's rows.
 
 The train step under dp x sp is in ``test_torch_spatial_train.py``.
 """
@@ -29,11 +38,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 from test_torch_parallel_ranks import FLAGSHIP  # noqa: E402
-from test_torch_spatial_ranks import CONVS, OPS, halo_ops_rank, op_inputs, run_op  # noqa: E402
+from test_torch_spatial_ranks import (CONVS, OPS, REPLICATED_IN, REPLICATED_OUT, SAME,  # noqa: E402
+                                      halo_ops_rank, op_inputs, run_op)
 
 from emrt_tpu_torch.config import get_config  # noqa: E402
 from emrt_tpu_torch.models import get_model  # noqa: E402
-from emrt_tpu_torch.models.layers import halo_rows  # noqa: E402
+from emrt_tpu_torch.models.layers import Conv2dSame, halo_rows  # noqa: E402
 from emrt_tpu_torch.parallel import check_parallel  # noqa: E402
 from emrt_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from emrt_tpu_torch.parallel.mesh import _Grid  # noqa: E402
@@ -44,7 +54,9 @@ TOL = 1e-6
 # 1), which the ranks and their strips of halo rows add in another order:
 # up to 1.44e-6 apart read
 BIAS_TOL = 3e-6
-CONV_NAMES = {name for name, _ in CONVS}
+CIN_SAME = 3
+CONV_NAMES = {name for name, _ in CONVS} | {SAME}
+ZOO_YAML = FLAGSHIP.parents[1] / "setr" / "SETR_PUP_Large_256x256_160k_potsdam_bs_8.yaml"
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,8 +80,12 @@ def test_a_halo_op_over_the_ranks_is_the_whole_image_op(name, world):
     case = next(c for c in _cases() if c[0] == name)
     whole = run_op(*case)
     ranks = [r[name] for r in _ranks(world)]
-    _close(np.concatenate([r["y"] for r in ranks], 2), whole["y"], f"{name}: output")
-    if name == "row resize":      # a replicated input: each rank holds a part of its gradient
+    if name in REPLICATED_OUT:    # every rank holds the whole output
+        for r in ranks:
+            _close(r["y"], whole["y"], f"{name}: output")
+    else:
+        _close(np.concatenate([r["y"] for r in ranks], 2), whole["y"], f"{name}: output")
+    if name in REPLICATED_IN:     # a replicated input: each rank holds a part of its gradient
         grad_x = sum(r["grad_x"] for r in ranks)
     else:
         grad_x = np.concatenate([r["grad_x"] for r in ranks], 2)
@@ -86,6 +102,26 @@ def test_halo_rows_of_each_conv_shape(kernel, stride, dilation, padding, want):
     assert halo_rows(kernel, stride, dilation, padding) == want
 
 
+def test_a_ranks_own_same_padding_is_wrong_inside_the_image():
+    """Each block of 8 of 32 rows, run through ``Conv2dSame`` on its own,
+    pads (0, 1) as the whole image does; but on the blocks above the last
+    the padded row is the next block's first row, so the block's last
+    output row differs from the whole image's, and only it."""
+    torch.manual_seed(0)
+    conv = Conv2dSame(CIN_SAME, 4, 3, 2, 0, 1, 1, bias=True)
+    x = torch.randn(2, CIN_SAME, 32, 12)
+    with torch.no_grad():
+        whole = conv(x)
+        for s in range(4):
+            own = conv(x[:, :, 8 * s:8 * s + 8])
+            want = whole[:, :, 4 * s:4 * s + 4]
+            torch.testing.assert_close(own[:, :, :3], want[:, :, :3])
+            if s < 3:
+                assert (own[:, :, 3] - want[:, :, 3]).abs().max() > 1e-2
+            else:
+                torch.testing.assert_close(own[:, :, 3], want[:, :, 3])
+
+
 def test_the_grid_is_the_jax_device_arrays_order(monkeypatch):
     """rank r = (d * MODEL + m) * SPATIAL + s: ``np.arange(world).reshape(data,
     model, spatial)`` (no group is made for one rank, so none is here)."""
@@ -99,6 +135,7 @@ def test_the_grid_is_the_jax_device_arrays_order(monkeypatch):
         d, m, s = (int(i[0]) for i in np.nonzero(layout == r))
         assert (g.data_rank, g.model_rank, g.spatial_rank) == (d, m, s)
         assert (g.data_world, g.spatial_world, g.gradient_world) == (2, 4, 8)
+        assert g.gradient_rank == d * 4 + s     # its rows' place in OHEM's flat batch
         assert g.spatial_group == tuple(layout[d, m])
         assert g.data_group == tuple(layout[:, m, s])
         assert g.gradient_group is None          # data x spatial is the world
@@ -120,19 +157,28 @@ def _meta_model(encoder="resnet50", stride=32, name=None):
     return get_model(cfg, device="meta")
 
 
-@pytest.mark.parametrize("spatial, stride", [(2, 32), (4, 32), (8, 32), (2, 16), (8, 16),
-                                             (2, 8), (8, 8)])
-def test_check_parallel_accepts_spatial_for_a_resnet_emrt(spatial, stride):
-    cfg = _config(SPATIAL=spatial)
-    check_parallel(cfg, 2 * spatial, _meta_model(stride=stride))
+@pytest.mark.parametrize("spatial, model, encoder, stride, name", [
+    (2, 1, "resnet50", 32, None), (4, 1, "resnet50", 32, None), (8, 1, "resnet50", 32, None),
+    (2, 1, "resnet50", 16, None), (8, 1, "resnet50", 16, None), (2, 1, "resnet50", 8, None),
+    (8, 1, "resnet50", 8, None), (2, 2, "resnet50", 32, None), (2, 1, "resnext50", 32, None),
+    (2, 1, "resnest50", 32, None), (2, 1, "resnet50", 32, "EMRT_HRNet"),
+    (4, 2, "resnet50", 32, "EMRT_HRNet")],
+    ids=["os32-s2", "os32-s4", "os32-s8", "os16-s2", "os16-s8", "os8-s2", "os8-s8", "tp-x-sp",
+         "resnext", "resnest", "hrnet", "hrnet-tp-x-sp4"])
+def test_check_parallel_accepts_spatial_for_a_conv_emrt(spatial, model, encoder, stride, name):
+    cfg = _config(SPATIAL=spatial, MODEL=model)
+    check_parallel(cfg, 2 * spatial * model, _meta_model(encoder, stride, name))
 
 
 @pytest.mark.parametrize("overrides, world, model, exc, match", [
-    ({"SPATIAL": 2, "MODEL": 2}, 4, None, NotImplementedError, "ROADMAP.md queue 1, item 2"),
-    ({"SPATIAL": 2}, 2, ("resnext50", 32, None), NotImplementedError,
-     "ROADMAP.md queue 1, items 3-4"),
-    ({"SPATIAL": 2}, 2, ("resnet50", 32, "EMRT_HRNet"), NotImplementedError,
-     "EMRT with a ResNet backbone only"),
+    ({"SPATIAL": 2}, 2, ("cswintransformer", 32, "EMRT_CSwin"), NotImplementedError,
+     "transformer backbone .*ROADMAP.md queue 1, item 4"),
+    ({"SPATIAL": 2}, 2, ("vit", 32, "EMRT_ViT"), NotImplementedError,
+     "transformer backbone .*ROADMAP.md queue 1, item 4"),
+    ({"SPATIAL": 2}, 2, ("segformer_b4", 32, None), NotImplementedError,
+     "transformer backbone .*ROADMAP.md queue 1, item 4"),
+    ({"SPATIAL": 2}, 2, "zoo", NotImplementedError,
+     "not for SETR .*ROADMAP.md queue 1, item 5"),
     ({"SPATIAL": 16}, 16, ("resnet50", 32, None), ValueError,
      "SPATIAL 16 does not divide the 8 rows of a 256-row crop at output stride 32"),
     ({"SPATIAL": 3}, 3, ("resnet50", 16, None), ValueError, "does not divide the 16 rows"),
@@ -141,15 +187,24 @@ def test_check_parallel_accepts_spatial_for_a_resnet_emrt(spatial, stride):
     ({"SPATIAL": 2}, 3, None, ValueError, "PARALLEL.SPATIAL 2 x PARALLEL.MODEL 1 does not "
                                           "divide the 3"),
     ({"SPATIAL": 2, "DATA": 2}, 2, None, ValueError, "use -1 or 1"),
-], ids=["tp-x-sp", "resnext", "hrnet", "os32-rows", "os16-rows", "os8-halo", "world", "data"])
+], ids=["cswin", "vit", "segformer_b4", "zoo", "os32-rows", "os16-rows", "os8-halo", "world",
+        "data"])
 def test_check_parallel_refuses_what_spatial_cannot_split(overrides, world, model, exc,
                                                           match):
+    if model == "zoo":
+        model = _meta_zoo_model()
+    elif model:
+        model = _meta_model(*model)
     with pytest.raises(exc, match=match):
-        check_parallel(_config(**overrides), world, model and _meta_model(*model))
+        check_parallel(_config(**overrides), world, model)
 
 
-def test_check_parallel_refuses_ohem_under_spatial():
+def _meta_zoo_model():
+    cfg = get_config(str(ZOO_YAML))
+    return get_model(cfg, device="meta")
+
+
+def test_check_parallel_accepts_ohem_under_spatial():
     cfg = _config(SPATIAL=2)
     cfg.TRAIN.LOSS = "OhemCrossEntropyLoss"
-    with pytest.raises(NotImplementedError, match="OhemCrossEntropyLoss"):
-        check_parallel(cfg, 2, _meta_model())
+    check_parallel(cfg, 2, _meta_model())

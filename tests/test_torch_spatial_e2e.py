@@ -33,7 +33,7 @@ from emrt_tpu.train.state import TrainState  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 from test_torch_emrt import bridged_state_dict, bridged_weights, tiny_jax_emrt  # noqa: E402
 from test_torch_parallel_ranks import FLAGSHIP, SMOKE, train_main_rank  # noqa: E402
-from test_torch_spatial_ranks import sp_train_step_rank  # noqa: E402
+from test_torch_spatial_ranks import grid_step_rank  # noqa: E402
 from test_torch_spatial_train import _batch  # noqa: E402
 
 from emrt_tpu_torch.parallel.launch import run_ranks  # noqa: E402
@@ -57,8 +57,8 @@ def test_the_jax_spatial_step_and_the_ports_dp1_x_sp2_step_agree(monkeypatch, tm
     step = jax_make_train_step(tiny_jax_emrt(), jax_loss(cfg), donate=False)
     _, metrics = step(state, batch, jax.random.key(0))
     torch.save(bridged_state_dict(), tmp_path / "bridged.pt")
-    ranks = run_ranks(sp_train_step_rank, 2, args=(2, str(tmp_path / "bridged.pt"), image,
-                                                   label, 0.0),
+    ranks = run_ranks(grid_step_rank, 2, args=(1, 2, "r50", str(tmp_path / "bridged.pt"),
+                                               image, label, 0.0),
                       timeout=600)
     for got in ranks:
         np.testing.assert_allclose(got["loss"], float(metrics["loss"]), rtol=1e-5)

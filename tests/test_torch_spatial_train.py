@@ -38,7 +38,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_emrt import bridged_state_dict  # noqa: E402
-from test_torch_spatial_ranks import sp_train_step_rank, sp_train_steps_rank  # noqa: E402
+from test_torch_spatial_ranks import calls_rank, grid_step_rank  # noqa: E402
 
 from emrt_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 
@@ -72,15 +72,15 @@ def state_path(tmp_path_factory):
 @functools.lru_cache(maxsize=None)
 def _sp2_runs(state_path):
     image, label = _batch(2)
-    calls = [(2, state_path, image, label, DROPOUT, fault, 0, dtype) for fault, dtype in SP2_RUNS]
-    return dict(zip(SP2_RUNS, zip(*run_ranks(sp_train_steps_rank, 2, args=(calls,),
-                                             timeout=600))))
+    calls = [(grid_step_rank, (1, 2, "r50", state_path, image, label, DROPOUT, fault, 0, dtype))
+             for fault, dtype in SP2_RUNS]
+    return dict(zip(SP2_RUNS, zip(*run_ranks(calls_rank, 2, args=(calls,), timeout=600))))
 
 
 @functools.lru_cache(maxsize=None)
 def _one(state_path, dtype):
     image, label = _batch(2)
-    return sp_train_step_rank(0, 1, 1, state_path, image, label, DROPOUT, dtype=dtype)
+    return grid_step_rank(0, 1, 1, 1, "r50", state_path, image, label, DROPOUT, dtype=dtype)
 
 
 def _failures(got, want, dtype) -> list:
@@ -129,8 +129,8 @@ def test_the_other_forms_of_the_step_give_the_same_step(form, state_path):
 def test_dp2_x_sp2_step_is_the_dp2_step(state_path):
     image, label = _batch(4)
     args = (state_path, image, label, DROPOUT)
-    dp = run_ranks(sp_train_step_rank, 2, args=(1, *args), timeout=600)
-    ranks = run_ranks(sp_train_step_rank, 4, args=(2, *args), timeout=600)
+    dp = run_ranks(grid_step_rank, 2, args=(1, 1, "r50", *args), timeout=600)
+    ranks = run_ranks(grid_step_rank, 4, args=(1, 2, "r50", *args), timeout=600)
     for got in ranks:
         assert _failures(got, dp[0], "float32") == []
     _assert_ranks_equal(ranks)

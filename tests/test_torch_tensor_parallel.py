@@ -6,9 +6,10 @@ gloo ranks on the CPU (``parallel.launch``; the ranks' halves are in
   ``tp_rule`` splits in the tiny EMRT-R50 (under the ``.pdparams`` key map),
   each rank's shard is the one ``tp_shard_params`` gives its device (through
   ``state_dict_from_flax``), and gathering the shards gives the whole state;
-- ``check_parallel`` refuses SPATIAL > 1 with MODEL > 1, a MODEL that does
-  not divide the world and one that does not divide the heads or the FFN's
-  width;
+- ``check_parallel`` refuses SPATIAL 2 with MODEL 2 for a ViT EMRT (its
+  transformer backbone is not sharded by rows) and accepts it for the
+  EMRT-R50 on four ranks, and refuses a MODEL that does not divide the
+  world and one that does not divide the heads or the FFN's width;
 - one train step of the tiny EMRT-R50 on four ranks as dp2 x tp2 against the
   JAX package's step on a ``data=2, model=2`` mesh with ``tp_shard_params``,
   from the same bridged weights and batch as the DP test, with that test's
@@ -121,8 +122,16 @@ def test_the_rule_splits_tp_rules_parameters_into_the_shards_of_each_device():
             assert torch.equal(joined[key], value), key
 
 
+def _tiny_vit_emrt():
+    with torch.device("meta"):
+        return EMRT(num_classes=6, backbone="vit", num_encoder_layers=1, num_decoder_layers=1,
+                    vit_hidden=32, vit_layers=4, vit_heads=2, vit_out_indices=(0, 1, 2, 3),
+                    img_size=(64, 64))
+
+
 @pytest.mark.parametrize("overrides, world, exc, match", [
-    ({"SPATIAL": 2, "MODEL": 2}, 4, NotImplementedError, "ROADMAP.md queue 1, item 2"),
+    ({"SPATIAL": 2, "MODEL": 2}, 4, NotImplementedError,
+     "transformer backbone .*ROADMAP.md queue 1, item 4"),
     ({"MODEL": 3}, 4, ValueError, "PARALLEL.MODEL 3 does not divide the 4"),
     ({"MODEL": 2, "DATA": 1}, 4, ValueError, "PARALLEL.DATA 1 x PARALLEL.MODEL 2"),
     ({"MODEL": 3}, 3, ValueError, "the 8 heads of model.encoder.layers.0.self_attn"),
@@ -133,13 +142,17 @@ def test_check_parallel_refuses_spatial_and_uneven_splits(overrides, world, exc,
     for key, value in overrides.items():
         setattr(cfg.PARALLEL, key, value)
     with pytest.raises(exc, match=match):
-        check_parallel(cfg, world, _tiny_torch_emrt())
+        check_parallel(cfg, world, _tiny_vit_emrt() if "SPATIAL" in overrides
+                       else _tiny_torch_emrt())
 
 
 def test_check_parallel_accepts_dp_x_tp_and_refuses_an_uneven_ffn():
     cfg = get_config(str(SMOKE))
     cfg.PARALLEL.MODEL = 2
     check_parallel(cfg, 4, _tiny_torch_emrt())
+    cfg.PARALLEL.SPATIAL = 2                   # dp1 x tp2 x sp2 of the EMRT-R50
+    check_parallel(cfg, 4, _tiny_torch_emrt())
+    cfg.PARALLEL.SPATIAL = 1
     cfg.PARALLEL.DATA = 2
     check_parallel(cfg, 4)
     cfg.PARALLEL.MODEL, cfg.PARALLEL.DATA = 8, -1
