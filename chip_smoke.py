@@ -173,11 +173,32 @@ that input; the step's norm is held within SP_NORM_RTOL of one process's,
 or within CONTROL_FACTOR x the control where that is larger. Phases 1 and
 3a also hold the kernels at the HRNet EMRT's calls at a tp2 rank's 4
 heads, and ``time_fwd`` / ``time_bwd`` time them.
+Phase 11 drives spatial parallelism of the paper's transformer-backbone
+EMRTs (EMRT_cswin_, EMRT_vit_ and EMRT_segformerb4_256x256_160k_potsdam.yaml:
+each rank's attentions take its tokens' queries over the keys and values
+gathered from its spatial group) at full width and depth with seeded
+weights, each rank a process of its own on the one card over gloo. (a)
+One float32 dp1 x sp2 step of each on phase 7's 8 rows, dropout 0.1 (the
+backbones' DropPath at the rates they set), against one process's step,
+with phase 10 (b)'s checks and bounds (``phase10_backbone``); (b) ViT-L's
+dp1 x tp2 x sp2 step with phase 10 (a)'s, the replicated gradients'
+spread over the model group included; (c) 6 K1 and 6 backward launches in
+each rank's step, at 8 heads in (a) and 4 in (b), at 1,344 / 110 queries
+(CSwin, SegFormer-B4) and 768 / 110 (ViT-L); (d) phase 9 (d)'s bf16 step,
+one process against each dp1 x sp2 rank, at 2 x 1024^2 for CSwin and
+SegFormer-B4 and 2 x 768^2 for ViT-L (ms, peak memory, each region's
+activations; a memory figure: the ranks share one card). Phases 1 and 3a
+also hold the kernels at ViT-L's calls at 768^2 (three 48^2 levels, Lq
+6,912 and 110), and ``time_fwd`` / ``time_bwd`` time them. Phase 10 (b)
+and (e)'s rank steps run in one start of the two ranks, and (e)'s one
+process after them; phase 11 (a) and (d)'s alike (``sharded_steps``): a
+start of the ranks costs 20-25 s.
 
 Any failed check raises, and the script then exits non-zero without the
 final line. ``python3 chip_smoke.py --tp-step`` runs phase 0 and phase 8's
 dp1 x tp2 step alone, ``--sp-step`` phase 0 and phase 9 without (c),
-``--tpsp-step`` phase 0 and phase 10 without (d), ``--norm-seeds`` phase 0
+``--tpsp-step`` phase 0 and phase 10 without (d), ``--transformer-sp``
+phase 0 and phase 11, ``--norm-seeds`` phase 0
 and phase 10 (b) from each seed of NORM_SEEDS (every reading printed
 before a check fails),
 ``--train-step`` phase 0 and phase 3c's timing of one process's bf16 bs-8
@@ -202,6 +223,7 @@ BS, HEADS, HEAD_DIM, POINTS = 32, 8, 32, 6
 LEVELS_256 = ((32, 32), (16, 16), (8, 8))
 LEVELS_512 = ((64, 64), (32, 32), (16, 16))
 LEVELS_VIT = ((16, 16),) * 3                       # ViT's taps, all at stride 16
+LEVELS_VIT768 = ((48, 48),) * 3                    # ViT's taps at 768^2 (phase 11 (d))
 LEVELS_32X3 = ((32, 32),) * 3                      # HRNet, ResNet at output stride 8
 LEVELS_OS16 = ((32, 32), (16, 16), (16, 16))       # ResNet at output stride 16
 # the 224^2, 384^2 and 448^2 yamls (ResNet-50 at output stride 32)
@@ -222,7 +244,9 @@ SHAPES = (("encoder 256^2", LEVELS_256, 1344),
           ("encoder 384^2", LEVELS_384, 3024),
           ("decoder 384^2", LEVELS_384, 110),
           ("encoder 448^2", LEVELS_448, 4116),
-          ("decoder 448^2", LEVELS_448, 110))
+          ("decoder 448^2", LEVELS_448, 110),
+          ("encoder 48^2x3", LEVELS_VIT768, 6912),
+          ("decoder 48^2x3", LEVELS_VIT768, 110))
 # tensor parallelism (phase 8): a rank of a model group of T runs the
 # flagship's calls at 8 / T heads, T = 2 and 4; and the HRNet EMRT's (three
 # 32^2 levels, SHAPES[5:7]) at 4 heads
@@ -1713,7 +1737,9 @@ def dp_reference(path, dropout=0.0, cfg=None, seed=0, control=False):
     torch.manual_seed(SP_SEED + seed)
     loss = step(batch).item()
     norm = optimizer.grad_norm.item()
-    grads = torch.cat([p.grad.flatten() for p in model.parameters()]).cpu()
+    # zeros for a parameter no path reads (CSwin's and ViT's tap-0 LayerNorm)
+    grads = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).flatten()
+                       for p in model.parameters()]).cpu()
     stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
     learned = {n: p.grad.cpu() for n, p in model.named_parameters() if n in LEARNED_REFERENCE}
     norm_control = None
@@ -1991,6 +2017,9 @@ TP_WORLD = 2                             # (a), (b), (d): dp1 x tp2 on 8 rows
 TP_GRID = (2, 2)                         # (c): dp2 x tp2 (data x model), four ranks
 TP_ITERS, TP_RESUME_ITERS, TP_TIMED = 2, 3, 5
 TP_DROPOUT = 0.1
+# the flagship's split parameters: 4 in each of its 6 deformable layers, 3 in
+# each of its decoder's 2 MHAs
+TP_SPLIT = 4 * 6 + 2 * 3
 # (a): the norm of the whole gradient before the clip, against one process's
 # (read 1.7e-6 to 5.3e-5 apart on the H100), and the gathered gradient's
 # norm after the clip, against GRAD_CLIP (taken in float64; the float32
@@ -2117,7 +2146,7 @@ def tp_step_rank(rank, world, devices, reference):
                                 if n in ref["learned_reference"]}
         shard, grads = shard_of(model), []
         for name, p in model.named_parameters():
-            g = p.grad.contiguous()
+            g = torch.zeros_like(p) if p.grad is None else p.grad.contiguous()
             if name in split:
                 parts = [torch.empty_like(g) for _ in range(TP_WORLD)]
                 dist.all_gather(parts, g, group=shard.group)
@@ -2186,7 +2215,7 @@ def tp_step_failures(out) -> list[str]:
          <= TP_CLIPPED_RTOL * min(out["clip"], out["norm"]),
          f"the gathered gradient after the clip has norm {out['clipped_norm']}, not "
          f"min(GRAD_CLIP {out['clip']}, its norm {out['norm']}) (rtol {TP_CLIPPED_RTOL})"),
-        (out["n_split"] == 4 * 6 + 2 * 3,
+        (out["n_split"] == TP_SPLIT,
          f"{out['n_split']} split parameters (4 in each of 6 layers, 3 in each of 2 MHAs)"),
         (tuple(out["launches_a"]) == (6, 6),
          f"a TP step launched forward/backward {out['launches_a']}"),
@@ -2450,16 +2479,17 @@ def _grid_step(cfg, device, init=None, dropout=None):
     convert_sync_batchnorm(model)
     optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
     trained = model if gradient_world() == 1 else DistributedDataParallel(
-        model, device_ids=[device], broadcast_buffers=False, process_group=gradient_group())
+        model, device_ids=[device], broadcast_buffers=False, process_group=gradient_group(),
+        find_unused_parameters=model.ddp_find_unused_parameters)
     return model, optimizer, make_train_step(trained, get_loss_function(cfg), optimizer), split
 
 
-def _large_batch(cfg, device):
-    """(d)'s batch: SP_LARGE_BS synthetic crops of SP_LARGE_CROP^2, the same on
+def _large_batch(cfg, device, size):
+    """(d)'s batch: SP_LARGE_BS synthetic crops of ``size``^2, the same on
     every rank (each keeps its rows)."""
     import torch
     gen = torch.Generator(device=device).manual_seed(3)
-    n, size = SP_LARGE_BS, SP_LARGE_CROP
+    n = SP_LARGE_BS
     return {"image": torch.randn((n, 3, size, size), generator=gen, device=device),
             "label": torch.randint(0, cfg.DATA.NUM_CLASSES, (n, size, size), generator=gen,
                                    device=device)}
@@ -2471,11 +2501,17 @@ SP_REGIONS = ("backbone", "spatial_branch", "psp_module", "model", "EFP", "cls_p
               "uphead", "auxlayer")
 
 
-def large_step_rank(rank, world, devices, path=str(CONFIG), regions=SP_REGIONS):
-    """Phase 9 (d) (the flagship) and phase 10 (e) (the HRNet EMRT at
-    ``path``) on one rank of dp1 x sp``world`` (one process for ``world``
-    1), a fresh process: ``_measure_large_step`` of the model's bf16 steps
-    at SP_LARGE_BS x SP_LARGE_CROP^2, reading ``regions``."""
+def large_step_rank(rank, world, devices, path=str(CONFIG), regions=SP_REGIONS,
+                    crop=SP_LARGE_CROP):
+    """Phase 9 (d) (the flagship), phase 10 (e) (the HRNet EMRT at
+    ``path``) and phase 11 (d) (the transformer-backbone EMRTs) on one
+    rank of dp1 x sp``world`` (one process for ``world`` 1):
+    ``_measure_large_step`` of the model's bf16 steps at SP_LARGE_BS x
+    ``crop``^2, reading ``regions``, its memory counted from what the
+    process held before the model was built (nothing in a fresh process;
+    phase 11 runs it after other steps in the same processes)."""
+    import gc
+
     import torch
     from emrt_tpu_torch.losses import get_loss_function
     from emrt_tpu_torch.models import get_model
@@ -2486,8 +2522,11 @@ def large_step_rank(rank, world, devices, path=str(CONFIG), regions=SP_REGIONS):
     device = torch.device(devices[rank])
     torch.cuda.set_device(device)
     cfg = _variant_config(path)
-    cfg.DATA.CROP_SIZE = (SP_LARGE_CROP, SP_LARGE_CROP)
+    cfg.DATA.CROP_SIZE = (crop, crop)
     cfg.PARALLEL.SPATIAL = world
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
     torch.manual_seed(0)
     with model_parallel(1, world):
         if world == 1:
@@ -2496,16 +2535,17 @@ def large_step_rank(rank, world, devices, path=str(CONFIG), regions=SP_REGIONS):
                                    get_optimizer(cfg, model, get_scheduler(cfg)))
         else:
             model, _, step, _ = _grid_step(cfg, device)
-        batch = spatial_rows(model, _large_batch(cfg, device))
-        return _measure_large_step(model, step, batch, device, regions)
+        batch = spatial_rows(model, _large_batch(cfg, device, crop))
+        return _measure_large_step(model, step, batch, device, regions, base)
 
 
-def _measure_large_step(model, step, batch, device, regions):
+def _measure_large_step(model, step, batch, device, regions, base=0):
     """SP_TIMED train steps ``step(batch)`` after one warm-up, their median
     ms (CUDA events) and the peak memory allocated over them; the memory the
     model, its gradients and the optimizer's state hold before a step; and,
     in the warm-up step, the memory each of the model's ``regions`` added in
-    the forward (its saved activations and outputs), in GiB."""
+    the forward (its saved activations and outputs), in GiB; the totals
+    counted above ``base`` bytes."""
     import torch
     gib = 2 ** 30
     marks = []
@@ -2522,10 +2562,11 @@ def _measure_large_step(model, step, batch, device, regions):
         found[name] = found.get(name, 0.0) + (mem - last) / gib
         last = mem
     torch.cuda.synchronize()
-    state = torch.cuda.memory_allocated(device) / gib  # the weights, gradients, momentum
+    # the weights, gradients, momentum
+    state = (torch.cuda.memory_allocated(device) - base) / gib
     torch.cuda.reset_peak_memory_stats(device)
     ms = cuda_ms(lambda: step(batch), reps=SP_TIMED, warmup=0)
-    return {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated(device) / gib,
+    return {"ms": ms, "peak_gib": (torch.cuda.max_memory_allocated(device) - base) / gib,
             "state_gib": state, "regions": found}
 
 
@@ -2591,7 +2632,7 @@ def grid_step_rank(rank, world, devices, reference, grid, path=str(CONFIG), over
             out["spread"], out["n_spread"] = max(held.items(), key=lambda kv: kv[1]), len(held)
         shard, grads = shard_of(model), []
         for name, p in model.named_parameters():
-            g = p.grad.contiguous()
+            g = torch.zeros_like(p) if p.grad is None else p.grad.contiguous()
             if name in split:
                 parts = [torch.empty_like(g) for _ in range(shard.world)]
                 dist.all_gather(parts, g, group=shard.group)
@@ -2603,6 +2644,7 @@ def grid_step_rank(rank, world, devices, reference, grid, path=str(CONFIG), over
         out["stats_rel"] = max(((stats[k] - v).abs().max() / v.abs().max()).item()
                                for k, v in ref["stats"].items())
         out["n_stats"], out["n_split"] = len(stats), len(split)
+        out["n_stats_ref"] = len(ref["stats"])
         digest = hashlib.sha256()
         for value in gather_model_state(model).values():
             digest.update(value.cpu().numpy().tobytes())
@@ -2628,18 +2670,19 @@ def norm_tol(out) -> float:
     return max(SP_NORM_RTOL, CONTROL_FACTOR * control)
 
 
-def grid_step_failures(out, calls) -> list[str]:
+def grid_step_failures(out, calls, n_split=TP_SPLIT) -> list[str]:
     """The checks that ``grid_step_rank``'s result fails, its kernels'
     calls to be ``calls``; under tp also the replicated gradients' spread
-    over the model group."""
+    over the model group and the ``n_split`` split parameters."""
     checks = [
         (out["rows"] == (128, 256), f"a rank trained on {out['rows']} image rows x columns"),
         (abs(out["loss"] - out["loss_ref"]) <= DP_LOSS_RTOL * abs(out["loss_ref"]),
          f"loss {out['loss']} vs one process's {out['loss_ref']} (rtol {DP_LOSS_RTOL})"),
         (out["grad_rel"] <= TRAIN_BN_GRAD_RTOL,
          f"gradients differ by {out['grad_rel']} (L2, tol {TRAIN_BN_GRAD_RTOL})"),
-        (out["n_stats"] > 100 and out["stats_rel"] <= DP_STATS_TOL,
-         f"running statistics differ by {out['stats_rel']} x max (tol {DP_STATS_TOL})"),
+        (out["n_stats"] == out["n_stats_ref"] > 0 and out["stats_rel"] <= DP_STATS_TOL,
+         f"running statistics ({out['n_stats']} tensors, one process {out['n_stats_ref']}) "
+         f"differ by {out['stats_rel']} x max (tol {DP_STATS_TOL})"),
         (abs(out["norm"] - out["norm_ref"]) <= norm_tol(out) * out["norm_ref"],
          f"gradient norm {out['norm']} vs one process's {out['norm_ref']} "
          f"(rtol {norm_tol(out):.3e})"),
@@ -2651,7 +2694,8 @@ def grid_step_failures(out, calls) -> list[str]:
         checks += [(out["n_spread"] > 300 and out["spread"][1] <= TP_SPREAD_TOL,
                     f"the replicated gradient {out['spread'][0]} differs over the model group "
                     f"by {out['spread'][1]} x its max (tol {TP_SPREAD_TOL})"),
-                   (out["n_split"] == 4 * 6 + 2 * 3, f"{out['n_split']} split parameters")]
+                   (out["n_split"] == n_split,
+                    f"{out['n_split']} split parameters, not {n_split}")]
     return [what for ok, what in checks if not ok]
 
 
@@ -2684,22 +2728,28 @@ def phase9_step(backend, devices, reference):
     return tuple(sum(out["launches_a"][i] for out in ranks) for i in range(2))
 
 
-def large_step_memory(card, leg, backend, devices, path=str(CONFIG), regions=SP_REGIONS):
-    """Phase 9 (d) and phase 10 (e): one process's bf16 step of the model at
-    ``path`` at the large crop and a dp1 x sp2 rank's, each in fresh
-    processes; prints their times, peak memory and breakdown. Returns the
-    ratio of the peaks."""
+def large_step_memory(card, leg, backend, devices):
+    """Phase 9 (d): one process's bf16 step of the flagship at SP_LARGE_BS x
+    SP_LARGE_CROP^2 and a dp1 x sp2 rank's, each in fresh processes on
+    ``devices`` over ``backend``; prints their times, peak memory and
+    breakdown (``report_large_step``). Returns the ratio of the peaks."""
     from emrt_tpu_torch.parallel.launch import run_ranks
-    one = run_ranks(large_step_rank, 1, args=(devices[:1], str(path), regions),
-                    backend=backend, timeout=600)[0]
-    ranks = run_ranks(large_step_rank, SP_WORLD, args=(devices[:SP_WORLD], str(path), regions),
-                      backend=backend, timeout=600)
+    one = run_ranks(large_step_rank, 1, args=(devices[:1],), backend=backend, timeout=600)[0]
+    ranks = run_ranks(large_step_rank, SP_WORLD, args=(devices[:SP_WORLD],), backend=backend,
+                      timeout=600)
+    return report_large_step(card, leg, one, ranks, SP_LARGE_CROP, devices)
+
+
+def report_large_step(card, leg, one, ranks, crop, devices):
+    """Print ``large_step_rank``'s readings of one process (``one``) and of
+    the dp1 x sp2 ``ranks`` on ``devices``; returns the ratio of the
+    peaks."""
     note = ("the ranks share one card over gloo: agreement and memory figures, not scaling"
             if len(set(devices[:SP_WORLD])) == 1 else "one card a rank")
     for who, out in [("one process", one)] + [(f"rank {r}", o) for r, o in enumerate(ranks)]:
         found = ", ".join(f"{k} {v:.3f}" for k, v in out["regions"].items())
-        print(f"{leg} {who}: bf16 step of {SP_LARGE_BS} x {SP_LARGE_CROP}^2 crops"
-              f"{'' if who == 'one process' else f' ({SP_LARGE_CROP // SP_WORLD} rows a rank)'}: "
+        print(f"{leg} {who}: bf16 step of {SP_LARGE_BS} x {crop}^2 crops"
+              f"{'' if who == 'one process' else f' ({crop // SP_WORLD} rows a rank)'}: "
               f"{out['ms']:.2f} ms (median of {SP_TIMED}, CUDA events), peak memory "
               f"{out['peak_gib']:.3f} GiB, of which weights, gradients and optimizer state "
               f"{out['state_gib']:.3f}; the forward's activations by region (GiB): {found} "
@@ -2802,28 +2852,39 @@ NORM_SEEDS = (0, 1, 2, 3, 4)             # ``--norm-seeds``: (b) from each
 
 
 def phase10_step(card, what, reference, grid, calls, path=str(CONFIG), overrides=(),
-                 strict=True):
-    """(a) or (b): ``grid`` = (model, spatial) ranks on the first card over
-    gloo, each rank's step against ``reference``'s (a ``dp_reference`` with
-    its control). Prints every rank's readings, then fails on the checks
-    that any rank failed (with ``strict`` False returns them instead).
-    Returns the launches of the ranks' steps and their failures."""
+                 strict=True, n_split=TP_SPLIT):
+    """Phase 10 (a), (b) and phase 11 (b) (``what``): ``grid`` = (model,
+    spatial) ranks on the first card over gloo, each rank's step against
+    ``reference``'s (a ``dp_reference`` with its control), reported by
+    ``report_grid_step``. Returns the launches of the ranks' steps and the
+    failures."""
     from emrt_tpu_torch.parallel.launch import run_ranks
     n = grid[0] * grid[1]
-    devices = ["cuda:0"] * n
     t0 = time.perf_counter()
-    ranks = run_ranks(grid_step_rank, n, args=(devices, reference, grid, str(path), overrides),
-                      timeout=900)
+    ranks = run_ranks(grid_step_rank, n, args=(["cuda:0"] * n, reference, grid, str(path),
+                                               overrides), timeout=900)
+    return report_grid_step(card, what, ranks, grid, calls, time.perf_counter() - t0, strict,
+                            n_split)
+
+
+def report_grid_step(card, what, ranks, grid, calls, seconds=None, strict=True,
+                     n_split=TP_SPLIT):
+    """Print ``grid_step_rank``'s readings on each of ``ranks`` (a grid of
+    (model, spatial) ranks on the first card, run in ``seconds``), then fail
+    on the checks that any rank failed (with ``strict`` False return them
+    instead). Returns the launches of the ranks' steps and the failures."""
+    n = grid[0] * grid[1]
+    devices = ["cuda:0"] * n
     tag = f"dp1 x tp{grid[0]} x sp{grid[1]}" if grid[0] > 1 else f"dp1 x sp{grid[1]}"
-    print(f"phase 10 {what}: {tag} on {', '.join(devices)} (the ranks share one card over "
-          f"gloo: an agreement figure, not scaling; {card}): the ranks ran in "
-          f"{time.perf_counter() - t0:.1f} s")
+    ran = "" if seconds is None else f": the ranks ran in {seconds:.1f} s"
+    print(f"{what}: {tag} on {', '.join(devices)} (the ranks share one card over "
+          f"gloo: an agreement figure, not scaling; {card}){ran}")
     for r, out in enumerate(ranks):
         spread = (f"; largest spread of {out['n_spread']} replicated gradients over the model "
                   f"group before the overwrite {out['spread'][1]:.3e} x max ({out['spread'][0]}, "
                   f"tol {TP_SPREAD_TOL}); {out['n_split']} split parameters"
                   if out["n_split"] else "")
-        print(f"phase 10 {what}: rank {r} float32 step of 8 x {out['rows']} rows x columns, "
+        print(f"{what}: rank {r} float32 step of 8 x {out['rows']} rows x columns, "
               f"dropout {SP_DROPOUT}: loss {out['loss']:.9g} against one process's "
               f"{out['loss_ref']:.9g} (rtol {DP_LOSS_RTOL}); gradients |grid-one|/|one| (L2) "
               f"{out['grad_rel']:.3e} (tol {TRAIN_BN_GRAD_RTOL}); BatchNorm running statistics "
@@ -2835,36 +2896,97 @@ def phase10_step(card, what, reference, grid, calls, path=str(CONFIG), overrides
               f"{abs(out['norm_control'] - out['norm_ref']) / out['norm_ref']:.3e} apart)"
               f"{spread}; (c) launches forward/backward {out['launches_a']}, calls (kind, "
               f"heads, queries) {out['calls']}")
-    failures = [f"phase 10 {what} rank {r}: {f}" for r, out in enumerate(ranks)
-                for f in grid_step_failures(out, calls)]
+    failures = [f"{what} rank {r}: {f}" for r, out in enumerate(ranks)
+                for f in grid_step_failures(out, calls, n_split)]
     if len({out["state_sha256"] for out in ranks}) != 1:
-        failures.append(f"phase 10 {what}: the ranks' gathered states differ after the step")
+        failures.append(f"{what}: the ranks' gathered states differ after the step")
     if len({out["replicated_sha256"] for out in ranks}) != 1:
-        failures.append(f"phase 10 {what}: the ranks' replicated parameters differ after the "
+        failures.append(f"{what}: the ranks' replicated parameters differ after the "
                         f"step")
     if strict:
         check(not failures, "; ".join(failures))
-    print(f"phase 10 {what}: after the dropout step the gathered states and the replicated "
+    print(f"{what}: after the dropout step the gathered states and the replicated "
           f"parameters are bitwise equal on the {n} ranks (sha256 "
           f"{ranks[0]['state_sha256'][:16]}, {ranks[0]['replicated_sha256'][:16]})")
     step_ms = ", ".join(f"{out['step_ms']:.2f}" for out in ranks)
     peaks = ", ".join(f"{out['peak_gib']:.3f}" for out in ranks)
-    print(f"phase 10 {what}: float32 steps a rank {step_ms} ms (median of {SP_TIMED}, CUDA "
+    print(f"{what}: float32 steps a rank {step_ms} ms (median of {SP_TIMED}, CUDA "
           f"events), peak memory {peaks} GiB ({card}; the ranks share one card over gloo: "
           f"not a scaling figure)")
     return tuple(sum(out["launches_a"][i] for out in ranks) for i in range(2)), failures
 
 
-def phase10_backbone(card, tmp, name, path, overrides, len_q, seed=0, strict=True):
-    """(b) for one of SP_BACKBONES, its weights, batch and dropout from
-    ``seed``: ``phase10_step`` at dp1 x sp2 against one process's step."""
+def _backbone_reference(tmp, name, path, pairs=(), seed=0):
+    """The ``dp_reference`` (dropout SP_DROPOUT, with its control) of the
+    model at ``path`` with config ``pairs`` from ``seed``, made once under
+    ``tmp``; returns its path."""
+    reference = Path(tmp) / f"{name} seed {seed}.pt"
+    if not reference.exists():
+        dp_reference(reference, dropout=SP_DROPOUT, cfg=_variant_config(path, pairs), seed=seed,
+                     control=True)
+    return str(reference)
+
+
+def _encoder_calls(heads, len_q):
+    """The kernels' calls of one EMRT step: the decoder's at 110 queries and
+    the encoder's at ``len_q``, forward and backward, at ``heads``."""
+    return [("bwd", heads, 110), ("bwd", heads, len_q), ("fwd", heads, 110),
+            ("fwd", heads, len_q)]
+
+
+def phase10_backbone(card, tmp, name, path, overrides, len_q, seed=0, strict=True,
+                     what="phase 10 (b)", grid=(1, SP_WORLD), n_split=TP_SPLIT):
+    """Phase 10 (b) for one of SP_BACKBONES and phase 11 (b) for ViT-L, its
+    weights, batch and dropout from ``seed``: ``phase10_step`` at dp1 x
+    tp``grid[0]`` x sp``grid[1]`` against one process's step, its encoder's
+    calls at ``len_q`` queries and 8 / ``grid[0]`` heads."""
     pairs = tuple(overrides.items())
-    reference = dp_reference(Path(tmp) / f"{name}.pt", dropout=SP_DROPOUT,
-                             cfg=_variant_config(path, pairs), seed=seed, control=True)
-    calls = [("bwd", HEADS, 110), ("bwd", HEADS, len_q), ("fwd", HEADS, 110),
-             ("fwd", HEADS, len_q)]
-    tag = f"(b) {name}" + (f" seed {seed}" if seed else "")
-    return phase10_step(card, tag, reference, (1, SP_WORLD), calls, path, pairs, strict)
+    reference = _backbone_reference(tmp, name, path, pairs, seed)
+    tag = f"{what} {name}" + (f" seed {seed}" if seed else "")
+    return phase10_step(card, tag, reference, grid, _encoder_calls(HEADS // grid[0], len_q),
+                        path, pairs, strict, n_split)
+
+
+def calls_rank(rank, world, calls):
+    """``fn(rank, world, *args)`` for each (fn, args) of ``calls`` in turn:
+    one start of the ranks for them all (a start of two ranks cost 20-25 s
+    on the H100 machine's shared host)."""
+    return [fn(rank, world, *args) for fn, args in calls]
+
+
+def sharded_steps(card, phase, tmp, steps, memory, legs):
+    """Phase 10 (b), (e) and phase 11 (a), (d) (``legs``): the dp1 x sp2
+    float32 step of each of ``steps`` ((name, yaml, config pairs, the
+    encoder's queries)) against one process's (``_backbone_reference``
+    under ``tmp``; ``report_grid_step``), then the bf16 memory step of each
+    of ``memory`` ((name, yaml, regions, crop)) on the same two ranks, all
+    in one start of them; then each memory step's one process, all in one
+    process (``report_large_step``; each counted from what its process
+    held before it). Returns the launches of the checked steps and the
+    memory ratios by name."""
+    from emrt_tpu_torch.parallel.launch import run_ranks
+    devices = ["cuda:0"] * SP_WORLD
+    jobs = [(grid_step_rank, (devices, _backbone_reference(tmp, name, path, pairs),
+                              (1, SP_WORLD), str(path), pairs))
+            for name, path, pairs, _ in steps]
+    large = [(str(path), regions, crop) for _, path, regions, crop in memory]
+    t0 = time.perf_counter()
+    ranks = run_ranks(calls_rank, SP_WORLD, args=(
+        jobs + [(large_step_rank, (devices, *args)) for args in large],), timeout=1800)
+    print(f"{phase} {legs[0]}, {legs[1]}: dp1 x sp{SP_WORLD} on {', '.join(devices)}: the "
+          f"ranks ran the {len(jobs)} steps of {legs[0]} and the {len(large)} of {legs[1]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches, ratios = (0, 0), {}
+    for i, (name, _, _, len_q) in enumerate(steps):
+        got, _ = report_grid_step(card, f"{phase} {legs[0]} {name}", [r[i] for r in ranks],
+                                  (1, SP_WORLD), _encoder_calls(HEADS, len_q))
+        launches = tuple(a + b for a, b in zip(launches, got))
+    ones = run_ranks(calls_rank, 1, args=(
+        [(large_step_rank, (devices[:1], *args)) for args in large],), timeout=1200)[0]
+    for i, ((name, *_), (_, _, crop)) in enumerate(zip(memory, large)):
+        ratios[name] = report_large_step(card, f"{phase} {legs[1]} {name}", ones[i],
+                                         [r[len(jobs) + i] for r in ranks], crop, devices)
+    return launches, ratios
 
 
 def phase10_torchrun(save_dir):
@@ -2890,20 +3012,64 @@ def phase10(card, torchrun=True):
 
     import torch
     torch.cuda.empty_cache()
-    launches = (0, 0)
     with tempfile.TemporaryDirectory() as tmp:
         reference = dp_reference(Path(tmp) / "flagship.pt", dropout=SP_DROPOUT, control=True)
-        got, _ = phase10_step(card, "(a)", reference, TPSP_GRID, TPSP_CALLS)
+        launches, _ = phase10_step(card, "phase 10 (a)", reference, TPSP_GRID, TPSP_CALLS)
+        got, ratios = sharded_steps(
+            card, "phase 10", tmp, [(name, path, tuple(overrides.items()), len_q)
+                                    for name, path, overrides, len_q in SP_BACKBONES],
+            [("HRNet-W48 EMRT", HRNET_YAML, HRNET_REGIONS, SP_LARGE_CROP)], ("(b)", "(e)"))
         launches = tuple(a + b for a, b in zip(launches, got))
-        for name, path, overrides, len_q in SP_BACKBONES:
-            got, _ = phase10_backbone(card, tmp, name, path, overrides, len_q)
-            launches = tuple(a + b for a, b in zip(launches, got))
-        ratio = large_step_memory(card, "phase 10 (e) HRNet-W48 EMRT", "gloo",
-                                  ["cuda:0"] * SP_WORLD, HRNET_YAML, HRNET_REGIONS)
+        ratio = ratios["HRNet-W48 EMRT"]
         if torchrun:
             phase10_torchrun(str(Path(tmp) / "torchrun"))
     print(f"phase 10: K1 / K2-K3 launches in the ranks' steps: {launches}")
     return launches, ratio
+
+
+# --------------------------------------- phase 11: SP of the transformer EMRTs
+
+# (a): dp1 x sp2 of the paper's transformer-backbone EMRTs: (name, yaml, the
+# encoder's queries at 256^2, (d)'s crop, (d)'s regions). ViT-L's (d) crop is
+# 768: one process's attention rows alone would take ~77 GB at 2 x 1024^2
+# (and the EMRT trains at no batch of 1: the pyramid pooling's 1 x 1 map has
+# one value a channel for its BatchNorm)
+TAPS_REGIONS = ("encoder",) + SP_REGIONS[1:]
+SP_TRANSFORMERS = (
+    ("CSwin", ROOT / "configs" / "EMRT" / "EMRT_cswin_256x256_160k_potsdam.yaml", 1344, 1024,
+     TAPS_REGIONS),
+    ("ViT-L", ROOT / "configs" / "EMRT" / "EMRT_vit_256x256_160k_potsdam.yaml", 768, 768,
+     TAPS_REGIONS),
+    ("SegFormer-B4", ROOT / "configs" / "EMRT" / "EMRT_segformerb4_256x256_160k_potsdam.yaml",
+     1344, 1024, SP_REGIONS))
+# (b): ViT-L's split parameters under tp2: the flagship's and 3 in each of its
+# 24 attentions (qkv weight and bias, the output projection's weight)
+VIT_SPLIT = TP_SPLIT + 24 * 3
+
+
+def phase11(card):
+    """Spatial parallelism of the transformer-backbone EMRTs (CSwin, ViT-L,
+    SegFormer-B4) at full width and depth with seeded weights, the ranks on
+    the one card over gloo: (a) each one's dp1 x sp2 step and (b) ViT-L's
+    dp1 x tp2 x sp2 step against one process's, (c) their kernels' launches,
+    (d) peak memory a rank against one process's. Returns the forward and
+    backward launches of the ranks' steps and (d)'s ratios."""
+    import tempfile
+
+    import torch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, ratios = sharded_steps(
+            card, "phase 11", tmp, [(name, path, (), len_q) for name, path, len_q, *_ in
+                                    SP_TRANSFORMERS],
+            [(f"{name} EMRT", path, regions, crop)
+             for name, path, _, crop, regions in SP_TRANSFORMERS], ("(a)", "(d)"))
+        name, path, len_q, _, _ = SP_TRANSFORMERS[1]
+        got, _ = phase10_backbone(card, tmp, name, path, {}, len_q, what="phase 11 (b)",
+                                  grid=TPSP_GRID, n_split=VIT_SPLIT)
+        launches = tuple(a + b for a, b in zip(launches, got))
+    print(f"phase 11: K1 / K2-K3 launches in the ranks' steps: {launches}")
+    return launches, ratios
 
 
 _CATEGORIES = (   # (category, substrings of a kernel's name), first match wins
@@ -3006,6 +3172,8 @@ def main():
     ended("phase 9")
     tpsp_launches, _ = phase10(card)
     ended("phase 10")
+    sp_transformer_launches, _ = phase11(card)
+    ended("phase 11")
     from emrt_tpu_torch.ops import deformable_cuda
     name, levels, len_q = SHAPES[0]
     fwd = fwd_times[name, BS, torch.bfloat16]
@@ -3032,6 +3200,11 @@ def main():
         return at(times, [(name, bs) for name, *_ in SHAPES[5:7] for bs in (BS, TRAIN_BS)]
                   + [(f"{name} nh 4", BS) for name, *_ in SHAPES[5:7]])
 
+    def at_vit768(times):
+        """At ViT-L's calls at 768^2 (three 48^2 levels, Lq 6,912 and 110),
+        bs 32 and 8."""
+        return at(times, [(name, bs) for name, *_ in SHAPES[-2:] for bs in (BS, TRAIN_BS)])
+
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ms_deform_attn_fwd", "route": "cuda",
@@ -3041,11 +3214,13 @@ def main():
          "launches_variants": variant_launches[0], "launches_inference": inference_launches,
          "launches_dp": dp_launches[0], "launches_tp": tp_launches[0],
          "launches_sp": sp_launches[0], "launches_tpsp": tpsp_launches[0],
+         "launches_sp_transformer": sp_transformer_launches[0],
          "max_abs_err": max_err, "ms": fwd["random"], "ms_on_the_grid": fwd["on the grid"],
          "ms_bs8": fwd_times[name, TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": fwd["plain"], "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
          "library_ms": None, "plan": str(plan), "timed_at": timed_at,
-         "tp_heads": at_tp_heads(fwd_times), "hrnet": at_hrnet(fwd_times), "card": card},
+         "tp_heads": at_tp_heads(fwd_times), "hrnet": at_hrnet(fwd_times),
+         "vit768": at_vit768(fwd_times), "card": card},
         {"name": "ms_deform_attn_bwd", "route": "cuda",
          "source": "emrt_tpu_torch/csrc/ms_deform_attn_bwd.cu",
          "replaces": "emrt_tpu/ops/deformable_pallas.py:200 "
@@ -3053,11 +3228,12 @@ def main():
          "launches": train_launches[1], "launches_variants": variant_launches[1],
          "launches_dp": dp_launches[1], "launches_tp": tp_launches[1],
          "launches_sp": sp_launches[1], "launches_tpsp": tpsp_launches[1],
+         "launches_sp_transformer": sp_transformer_launches[1],
          "max_abs_err": bwd_err, "ms": bwd["random"], "ms_on_the_grid": bwd["on the grid"],
          "ms_bs8": bwd_times[SHAPES[0][0], TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": bwd["plain"], "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],
          "library_ms": None, "timed_at": timed_at, "tp_heads": at_tp_heads(bwd_times),
-         "hrnet": at_hrnet(bwd_times), "card": card}]}))
+         "hrnet": at_hrnet(bwd_times), "vit768": at_vit768(bwd_times), "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3090,6 +3266,14 @@ def main_tpsp_step():
     print("chip_smoke.py --tpsp-step: passed")
 
 
+def main_transformer_sp():
+    """``--transformer-sp``: phase 0, then phase 11 ((a)-(d) over gloo, the
+    ranks on the first card)."""
+    card = phase0()
+    phase11(card)
+    print("chip_smoke.py --transformer-sp: passed")
+
+
 def main_norm_seeds():
     """``--norm-seeds``: phase 0, then phase 10 (b) from each seed of
     NORM_SEEDS (the weights, the batch and the dropout masks), every
@@ -3115,7 +3299,8 @@ def main_train_step():
 
 if __name__ == "__main__":
     modes = {"--tp-step": main_tp_step, "--sp-step": main_sp_step,
-             "--tpsp-step": main_tpsp_step, "--norm-seeds": main_norm_seeds,
+             "--tpsp-step": main_tpsp_step, "--transformer-sp": main_transformer_sp,
+             "--norm-seeds": main_norm_seeds,
              "--train-step": main_train_step}
     if sys.argv[1:] and sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import DropPath, Mlp, layer_norm, xavier_uniform_
+from ..layers import DropPath, Mlp, layer_norm, sharded, xavier_uniform_
 
 
 def _stripes(x, hs: int, ws: int):
@@ -41,29 +41,57 @@ def _unstripes(x, hs: int, ws: int, h: int, w: int):
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
 
 
+class _StripeConv(nn.Conv2d):
+    """LePE's depthwise conv, over stripes of the whole map: a spatial shard
+    (``parallel/spatial.py::shard_model_``) leaves it a plain conv."""
+
+
 class LePEAttention(nn.Module):
-    """Stripe attention with locally-enhanced positional encoding on V."""
+    """Stripe attention with locally-enhanced positional encoding on V.
+
+    ``q`` holds the rows ``[first, first + rows)`` of the map whose keys and
+    values ``k``, ``v`` hold every row (one process: all of them; a spatial
+    rank: its own rows' queries over the gathered keys and values). The
+    queries run over the stripes their rows touch; where they touch more
+    than one, the queries are padded with zero rows to those stripes'
+    edges, and the padded rows' outputs dropped."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.get_v = xavier_uniform_(nn.Conv2d(dim, dim, 3, 1, 1, groups=dim))
+        self.get_v = xavier_uniform_(_StripeConv(dim, dim, 3, 1, 1, groups=dim))
 
-    def forward(self, q, k, v, hs: int, ws: int):
-        _, h, w, c = q.shape
+    def forward(self, q, k, v, hs: int, ws: int, first: int = 0):
+        _, rows, w, c = q.shape
         hd = c // self.num_heads
-        qs = _stripes(q, hs, ws).reshape(-1, hs * ws, self.num_heads, hd)
+        lo, hi = first // hs * hs, -(-(first + rows) // hs) * hs    # the stripes' rows
+        k, v = k[:, lo:hi], v[:, lo:hi]
+        top, qh = first - lo, rows
+        if hi - lo > hs:
+            q = F.pad(q, (0, 0, 0, 0, top, hi - first - rows))
+            top, qh = 0, hs
+        qs = _stripes(q, qh, ws).reshape(-1, qh * ws, self.num_heads, hd)
         ks = _stripes(k, hs, ws).reshape(-1, hs * ws, self.num_heads, hd)
         v_str = _stripes(v, hs, ws)                                   # [n, hs, ws, c]
-        lepe = self.get_v(v_str.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        lepe = self.get_v(v_str.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)[:, top:top + qh]
         vs = v_str.reshape(-1, hs * ws, self.num_heads, hd)
         attn = torch.einsum("bqhd,bkhd->bhqk", qs * hd ** -0.5, ks)
         attn = attn.float().softmax(-1).to(vs.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, vs).reshape(-1, hs, ws, c)
-        return _unstripes(out + lepe, hs, ws, h, w)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, vs).reshape(-1, qh, ws, c)
+        out = _unstripes(out + lepe, qh, ws, q.shape[1], w)
+        return out[:, first - lo:first - lo + rows] if q.shape[1] > rows else out
 
 
 class CSwinBlock(nn.Module):
+    """Under a spatial shard (``parallel/spatial.py``) a rank's block holds
+    its rows of the map: the norms, the projections and the MLP run on
+    them, each attention's queries are its rows, and the keys and values of
+    every rank's rows are gathered (``SpatialShard.gather_rows``), the zero
+    rows that pad the map to a multiple of ``split`` (their keys and values
+    the qkv bias) after the image's last row."""
+
+    spatial = None
+
     def __init__(self, dim: int, num_heads: int, split: int, mlp_ratio: float = 4.0,
                  split_heads: bool = True, drop_path: float = 0.0, dropout: float = 0.0):
         super().__init__()
@@ -80,18 +108,26 @@ class CSwinBlock(nn.Module):
 
     def forward(self, x):
         """x: [b, h, w, c]."""
-        _, h, w, c = x.shape
-        s = self.split
-        y = F.pad(self.norm1(x), (0, 0, 0, -w % s, 0, -h % s))
-        hp, wp = y.shape[1:3]
-        q, k, v = self.qkv(y).chunk(3, dim=-1)
+        b, h, w, c = x.shape
+        s, shard = self.split, sharded(self)
+        y = self.norm1(x)
+        if shard is None:
+            q, k, v = self.qkv(F.pad(y, (0, 0, 0, -w % s, 0, -h % s))).chunk(3, dim=-1)
+            first = 0
+        else:
+            q, kv = self.qkv(F.pad(y, (0, 0, 0, -w % s))).split((c, 2 * c), -1)
+            kv = shard.gather_rows(kv, dim=1)
+            pad = self.qkv(y.new_zeros(b, -kv.shape[1] % s, kv.shape[2], c))[..., c:]
+            k, v = torch.cat([kv, pad], 1).chunk(2, dim=-1)
+            first = shard.rank * h
+        hp, wp = k.shape[1:3]
         if len(self.attns) == 2:
             half = c // 2
             attn = torch.cat([
-                self.attns[0](q[..., :half], k[..., :half], v[..., :half], hp, s),
-                self.attns[1](q[..., half:], k[..., half:], v[..., half:], s, wp)], -1)
+                self.attns[0](q[..., :half], k[..., :half], v[..., :half], hp, s, first),
+                self.attns[1](q[..., half:], k[..., half:], v[..., half:], s, wp, first)], -1)
         else:
-            attn = self.attns[0](q, k, v, hp, wp)
+            attn = self.attns[0](q, k, v, hp, wp, first)
         x = x + self.drop_path(self.proj(attn)[:, :h, :w])
         return x + self.drop_path(self.mlp(self.norm2(x)))
 

@@ -28,13 +28,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import Conv2dSame, DropPath, layer_norm, xavier_uniform_
+from ..layers import (Conv2dSame, DropPath, RowDropout, layer_norm, sharded, split_dropout,
+                      xavier_uniform_)
 
 
 class EfficientAttention(nn.Module):
     """Attention whose keys and values come from the map shrunk by ``sr_ratio``
     (a k = stride = sr_ratio conv, flax's default "SAME" padding, which pads
-    only a map that is not a multiple of sr_ratio, then a LayerNorm)."""
+    only a map that is not a multiple of sr_ratio, then a LayerNorm). Under
+    a spatial shard (``parallel/spatial.py``) the queries are the rank's
+    tokens, ``hw`` its rows of the map: the ``sr`` conv shrinks them alone
+    (their count a multiple of sr_ratio), and the reduced keys and values
+    of every rank are gathered."""
+
+    spatial = None
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1, dropout: float = 0.0):
         super().__init__()
@@ -45,19 +52,25 @@ class EfficientAttention(nn.Module):
         self.sr = (xavier_uniform_(Conv2dSame(dim, dim, sr_ratio, sr_ratio))
                    if sr_ratio > 1 else None)
         self.norm = layer_norm(dim) if sr_ratio > 1 else None
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout, 1)
 
     def forward(self, x, hw):
         b, n, c = x.shape
         hd = c // self.num_heads
+        shard = sharded(self)
         q = self.q(x).view(b, n, self.num_heads, hd)
         kv_in = x
         if self.sr is not None:
             y = self.sr(x.transpose(1, 2).reshape(b, c, *hw))
             kv_in = self.norm(y.flatten(2).transpose(1, 2))
-        k, v = self.kv(kv_in).view(b, -1, 2, self.num_heads, hd).unbind(2)
+        kv = self.kv(kv_in).view(b, -1, 2, self.num_heads, hd)
+        block = None
+        if shard is not None:
+            kv, block = shard.gather_rows(kv, dim=1), (2, *shard.block(n))
+        k, v = kv.unbind(2)
         attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
-        attn = self.dropout(attn.float().softmax(-1).to(v.dtype))
+        attn = split_dropout(attn.float().softmax(-1).to(v.dtype), self.dropout.p,
+                             self.training, 2, block=block)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, c)
         return self.dropout(self.proj(out))
 
@@ -80,7 +93,7 @@ class MixFFN(nn.Module):
         self.fc1 = xavier_uniform_(nn.Linear(dim, hidden))
         self.dwconv = _DWConv(hidden)
         self.fc2 = xavier_uniform_(nn.Linear(hidden, dim))
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout, 1)
 
     def forward(self, x, hw):
         y = F.gelu(self.dwconv(self.fc1(x), hw), approximate="tanh")
@@ -172,11 +185,14 @@ _MIT_CONFIGS = {
 
 
 class MixVisionTransformer(nn.Module):
+    """The MixViT; forward(images) -> the four stage maps (NCHW) at strides
+    4/8/16/32, of ``embed_dims`` channels."""
+
     def __init__(self, embed_dims=(64, 128, 320, 512), depths=(3, 8, 27, 3),
                  num_heads=(1, 2, 5, 8), sr_ratios=(8, 4, 2, 1), mlp_ratio: float = 4.0,
                  dropout: float = 0.0, drop_path_rate: float = 0.1):
         super().__init__()
-        self.depths = tuple(depths)
+        self.depths, self.embed_dims = tuple(depths), tuple(embed_dims)
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, sum(depths))]
         cin, blk = 3, 0
         for s, (dim, depth) in enumerate(zip(embed_dims, depths), start=1):

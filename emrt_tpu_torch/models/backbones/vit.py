@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import Mlp, layer_norm, split_dropout, xavier_uniform_
+from ..layers import Mlp, RowDropout, layer_norm, sharded, split_dropout, xavier_uniform_
 
 
 class Attention(nn.Module):
@@ -32,10 +32,15 @@ class Attention(nn.Module):
     under ``tp_rule``), a rank holds its heads' rows of each q, k, v block
     of ``qkv`` and the matching input columns of the output projection,
     whose bias is added once after the group's sum; the ``Mlp`` stays
-    replicated."""
+    replicated. Under a spatial shard (``parallel/spatial.py``) the queries
+    are the rank's tokens and the keys and values those of every rank of
+    its spatial group (its heads' under tp x sp), gathered after the
+    ``lead`` tokens (the cls token) that spatial rank 0 holds."""
 
     TP_SPLITS = {"qkv.weight": (0, 3), "qkv.bias": (0, 3), "out.weight": (1, 1)}
     tp = None
+    spatial = None
+    lead = 0
 
     def __init__(self, dim: int, num_heads: int, attn_dropout: float = 0.0,
                  qkv_bias: bool = True):
@@ -57,14 +62,19 @@ class Attention(nn.Module):
         output projection."""
         b, n, c = x.shape
         hd = c // self.num_heads
-        tp = self.tp
+        tp, shard = self.tp, sharded(self)
         heads = self.num_heads // (tp.world if tp is not None else 1)
         if tp is not None:
             x = tp.copy_in(x)
-        q, k, v = self.qkv(x).view(b, n, 3, heads, hd).unbind(2)
+        qkv = self.qkv(x).view(b, n, 3, heads, hd)
+        q, k, v = qkv.unbind(2)
+        block = None
+        if shard is not None:
+            k, v = shard.gather_rows(qkv[:, :, 1:], dim=1, lead=self.lead).unbind(2)
+            block = (2, *shard.block(n, self.lead))
         attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
         attn = split_dropout(attn.float().softmax(-1).to(v.dtype), self.attn_drop.p,
-                             self.training, 1, tp)
+                             self.training, 1, tp, block)
         return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, heads * hd)
 
     def project(self, out, linear):
@@ -83,7 +93,7 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.attn_norm = layer_norm(dim)
         self.attn = Attention(dim, num_heads, attn_dropout)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout, 1)
         self.mlp_norm = layer_norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout)
 
@@ -93,6 +103,12 @@ class EncoderLayer(nn.Module):
 
 
 class Embeddings(nn.Module):
+    """The patch embed, the cls token and the position table. Under a
+    spatial shard the rank's patch rows take their rows of the table, and
+    spatial rank 0 alone holds the cls token (``VisionTransformer``)."""
+
+    spatial = None
+
     def __init__(self, img_size, patch_size: int, dim: int):
         super().__init__()
         self.grid = (img_size[0] // patch_size, img_size[1] // patch_size)
@@ -104,12 +120,19 @@ class Embeddings(nn.Module):
 
     def forward(self, x):
         x = self.patch_embeddings(x)
-        if tuple(x.shape[2:]) != self.grid:
-            raise ValueError(f"input {tuple(x.shape[2:])} patches, position table for "
-                             f"{self.grid}: the ViT takes one input size")
+        shard = sharded(self)
+        world = 1 if shard is None else shard.world
+        if (x.shape[2] * world, x.shape[3]) != self.grid:
+            raise ValueError(f"input {(x.shape[2] * world, x.shape[3])} patches, position "
+                             f"table for {self.grid}: the ViT takes one input size")
         x = x.flatten(2).transpose(1, 2)
         cls = self.cls_token.expand(x.shape[0], -1, -1).to(x.dtype)
-        return torch.cat([cls, x], 1) + self.position_embeddings.to(x.dtype)
+        pos = self.position_embeddings.to(x.dtype)
+        if shard is None:
+            return torch.cat([cls, x], 1) + pos
+        first, _ = shard.block(x.shape[1])
+        x = x + pos[:, 1 + first:1 + first + x.shape[1]]
+        return torch.cat([cls + pos[:, :1], x], 1) if shard.rank == 0 else x
 
 
 class _Layers(nn.Module):
@@ -131,9 +154,14 @@ class VisionTransformer(nn.Module):
         self.drop_prefix_after_pos = drop_prefix_after_pos
         self.return_cls = return_cls
         self.embeddings = Embeddings(img_size, patch_size, hidden_size)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout, 1)
         self.encoder = _Layers(EncoderLayer(hidden_size, num_heads, mlp_ratio, dropout,
                                             attn_dropout) for _ in range(num_layers))
+        if not drop_prefix_after_pos:
+            # under a spatial shard the cls token leads spatial rank 0's tokens
+            for m in self.modules():
+                if isinstance(m, (Attention, RowDropout)):
+                    m.lead = 1
 
     def forward(self, x):
         x = self.embeddings(x)
@@ -141,6 +169,8 @@ class VisionTransformer(nn.Module):
             x = x[:, 1:]
         x = self.dropout(x)
         gh, gw = self.embeddings.grid
+        shard = sharded(self.embeddings)
+        gh //= 1 if shard is None else shard.world          # the rank's patch rows
         feats, cls_taps = [], []
         for i, layer in enumerate(self.encoder.layers):
             x = layer(x)

@@ -156,13 +156,15 @@ class EMRT(nn.Module):
     the ``vit_*`` knobs and ``img_size`` (h, w) ViT, ``output_stride`` the
     ResNets; the other backbones have fixed widths (HRNet-W48).
 
-    With a ResNet, ResNeXt, ResNeSt or HRNet backbone the model can be
-    sharded over image rows (``parallel/spatial.py``; ``spatial_stride`` is
-    the deepest stride of its sharded region, None for the transformer
-    backbones). In training mode under a ``SpatialShard`` (``spatial``) the
-    backbone (with HRNet's ``input_proj``), the spatial branch, the aux
-    head, ``cls_psp`` and ``uphead`` run on the rank's rows with halo
-    exchanges; their maps are gathered whole for the pyramid pooling, the
+    Every backbone's EMRT can be sharded over image rows
+    (``parallel/spatial.py``; ``spatial_stride`` is the deepest stride of
+    its sharded region: 32, a ResNet's output stride, ViT's patch 16). In
+    training mode under a ``SpatialShard`` (``spatial``) the backbone (with
+    HRNet's ``input_proj``; CSwin's and ViT's ``encoder`` and tap norms),
+    the spatial branch, the aux head, ``cls_psp`` and ``uphead`` run on the
+    rank's rows with halo exchanges, a transformer backbone's attentions
+    with the rank's queries over keys and values gathered from every rank;
+    their maps are gathered whole for the pyramid pooling, the
     encoder-decoder and EFP, which every rank of the group runs alike; and
     the PSP re-broadcast, the fused pyramid and the aux logits come back to
     the rank's rows. Both outputs are then the rank's rows."""
@@ -184,7 +186,6 @@ class EMRT(nn.Module):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.dtype = dtype
         self.psp_scales = tuple(psp_scales)
-        self.spatial_stride = None
         # reference keys the forward never reads: Paddle registers tgt_embed
         # (transformer_encoder_decoder.py:367-369, 469-471); the SegFormer
         # wrapper's head is dead weight (segformer_paddleSeg.py:80-84)
@@ -211,6 +212,7 @@ class EMRT(nn.Module):
             taps = [trans_embed_dim * 2 ** i for i in range(len(trans_depths))]
             self.layer_norms = nn.ModuleList(layer_norm(c) for c in taps)
             channels = taps[1:]
+            self.spatial_stride = 32                 # the last stage
         elif name == "vit":
             self.variant = "taps"
             self.encoder = ViTEncoder(img_size=tuple(img_size), hidden_size=vit_hidden,
@@ -219,6 +221,7 @@ class EMRT(nn.Module):
             n_taps = sum(0 <= i < vit_layers for i in vit_out_indices)
             self.layer_norms = nn.ModuleList(layer_norm(vit_hidden) for _ in range(n_taps))
             channels = [vit_hidden] * (n_taps - 1)
+            self.spatial_stride = 16                 # the patch
         elif name == "hrnet":
             self.variant = "hrnet"
             self.backbone = HRNet()
@@ -232,7 +235,8 @@ class EMRT(nn.Module):
             self.variant = "mit"
             self.backbone = SegFormerEncoder("b4")
             self.pdparams_unused += ("backbone.linear_",)
-            channels = [128, 320, 512]
+            channels = list(self.backbone.backbone.embed_dims[1:])
+            self.spatial_stride = 32                 # the last stage
         else:
             raise NotImplementedError(f"backbone {backbone}")
         if self.variant != "hrnet":
@@ -257,15 +261,24 @@ class EMRT(nn.Module):
 
     def spatial_region(self):
         """The modules that run on a rank's rows under a spatial shard."""
-        region = (self.backbone, self.spatial_branch, self.auxlayer, self.cls_psp, self.uphead)
+        backbone = ((self.encoder, self.layer_norms) if self.variant == "taps"
+                    else (self.backbone,))
+        region = backbone + (self.spatial_branch, self.auxlayer, self.cls_psp, self.uphead)
         return region + ((self.input_proj,) if self.variant == "hrnet" else ())
 
     def spatial_deepest(self):
         """The modules of the sharded region that run at its deepest stride
-        (``spatial_stride``): a ResNet's last stage, HRNet's fourth branch."""
+        (``spatial_stride``): a ResNet's last stage, HRNet's fourth branch,
+        CSwin's last stage, the ViT, the MixViT's last patch embed and
+        blocks."""
         if self.variant == "hrnet":
             return [block for module in self.backbone.st4.values()
                     for key, block in module.branches_func.items() if "_branch_layer_4_" in key]
+        if self.variant == "taps":
+            encoder = self.encoder
+            return [encoder.stages[-1] if isinstance(encoder, CSwinTransformer) else encoder]
+        if self.variant == "mit":
+            return [self.backbone.backbone.patch_embed4, self.backbone.backbone.block4]
         return [self.backbone.layer4]
 
     def forward(self, images):

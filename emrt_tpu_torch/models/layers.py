@@ -159,14 +159,23 @@ def upsample(x, size, shard=None):
 
 
 class RowDropout(nn.Dropout):
-    """``nn.Dropout`` that draws its mask through ``split_dropout`` along
-    the rows (dim 2), whole or, under a spatial shard, the full height's
-    mask cut to the rank's rows: one process and a sharded run draw alike."""
+    """``nn.Dropout`` that draws its mask through ``split_dropout``, whole
+    or, under a spatial shard, the full mask of the image's rows cut to the
+    rank's along ``dim`` (2 of NCHW maps; 1 of NHWC maps and of tokens [b,
+    n, c], whose rows ``lead`` tokens precede on spatial rank 0: ViT's cls
+    token): one process and a sharded run draw alike."""
 
     spatial = None
+    lead = 0
+
+    def __init__(self, p: float = 0.5, dim: int = 2):
+        super().__init__(p)
+        self.dim = dim
 
     def forward(self, x):
-        return split_dropout(x, self.p, self.training, 2, sharded(self))
+        shard = sharded(self)
+        block = None if shard is None else (self.dim, *shard.block(x.shape[self.dim], self.lead))
+        return split_dropout(x, self.p, self.training, self.dim, block=block)
 
 
 def conv2d(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
@@ -206,13 +215,14 @@ class AdaptiveAvgPool(nn.Module):
 
 class Mlp(nn.Module):
     """Transformer FFN: ``fc1`` -> GELU (tanh form, flax's ``nn.gelu``) ->
-    dropout -> ``fc2`` -> dropout."""
+    dropout -> ``fc2`` -> dropout, over tokens [b, n, c] or NHWC maps (its
+    dropout a ``RowDropout`` along dim 1)."""
 
     def __init__(self, dim: int, hidden: int, dropout: float = 0.0):
         super().__init__()
         self.fc1 = xavier_uniform_(nn.Linear(dim, hidden))
         self.fc2 = xavier_uniform_(nn.Linear(hidden, dim))
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout, 1)
 
     def forward(self, x):
         x = self.dropout(F.gelu(self.fc1(x), approximate="tanh"))
@@ -242,13 +252,16 @@ def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=NORM_EPS)
 
 
-def split_dropout(x, p: float, training: bool, dim: int, shard=None):
+def split_dropout(x, p: float, training: bool, dim: int, shard=None, block=None):
     """Dropout at a site whose activations a model group splits along
-    ``dim`` (the FFN's hidden width, the attention's heads): the keep mask
-    of the full width is drawn, as one process draws it, and a rank of a
-    split model (``shard``, ``parallel/tensor.py``) keeps its slice. One
-    process draws through here too, so a split run consumes the generator
-    alike. Kept values are multiplied by 1 / (1 - p) in one kernel each way
+    ``dim`` (the FFN's hidden width, the attention's heads) or a spatial
+    group along image rows: the keep mask of the full width is drawn, as
+    one process draws it, and a rank of a split model (``shard``,
+    ``parallel/tensor.py``) keeps its slice; ``block`` (dim, first, total):
+    a spatial rank's entries ``[first, first + x.shape[dim])`` of the
+    ``total`` (``parallel/spatial.py``, ``SpatialShard.block``). One process
+    draws through here too, so a split run consumes the generator alike.
+    Kept values are multiplied by 1 / (1 - p) in one kernel each way
     (``native_dropout_backward``, torch's own dropout's: flax's ``Dropout``
     divides by 1 - p, the same to a float spacing)."""
     if not training or p == 0.0:
@@ -257,9 +270,13 @@ def split_dropout(x, p: float, training: bool, dim: int, shard=None):
     dim = dim % x.dim()
     full = list(x.shape)
     full[dim] *= shard.world if shard is not None else 1
+    if block is not None:
+        rows, first, full[rows] = block
     mask = torch.empty(full, dtype=torch.bool, device=x.device).bernoulli_(keep)
     if shard is not None:
         mask = mask.narrow(dim, shard.rank * x.shape[dim], x.shape[dim])
+    if block is not None:
+        mask = mask.narrow(rows, first, x.shape[rows])
     return torch.ops.aten.native_dropout_backward(x, mask, 1.0 / keep)
 
 

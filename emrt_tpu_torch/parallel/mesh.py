@@ -23,7 +23,8 @@ nothing communicates.
 Launch: ``torchrun --nproc_per_node 4 -m emrt_tpu_torch.train --config
 <yaml> PARALLEL.MODEL 2`` trains dp2 x tp2 (PARALLEL.DATA -1 or 2);
 ``... --nproc_per_node 2 ... PARALLEL.SPATIAL 2`` trains dp1 x sp2 (an
-EMRT with a ResNet, ResNeXt, ResNeSt or HRNet backbone) and
+EMRT with any backbone: ResNet, ResNeXt, ResNeSt, HRNet, CSwin, ViT or
+SegFormer-B4) and
 ``... --nproc_per_node 4 ... PARALLEL.MODEL 2 PARALLEL.SPATIAL 2`` dp1 x
 tp2 x sp2: the split transformer runs on the maps each spatial group
 gathers, DDP sums the gradients over the gradient group and the
@@ -294,9 +295,9 @@ def check_parallel(config, world: int, model=None):
     world / (MODEL x SPATIAL). Given the model, MODEL must also divide every
     dimension it splits (``tensor.check_divides``), as JAX's ``device_put``
     refuses an uneven split, and SPATIAL must fit it
-    (``spatial.check_spatial``: an EMRT with a convolutional backbone whose
-    deepest sharded rows SPATIAL divides, each rank's at least as many as
-    the deepest halo there)."""
+    (``spatial.check_spatial``: an EMRT, of any backbone, whose deepest
+    sharded rows SPATIAL divides, each rank's at least as many as the
+    deepest halo there; not the zoo)."""
     p = config.PARALLEL
     if p.MODEL < 1 or world % p.MODEL:
         raise ValueError(f"PARALLEL.MODEL {p.MODEL} does not divide the {world} "

@@ -6,11 +6,11 @@ batch placed on ``P("data", "spatial")``, image H split over the mesh's
 PyTorch has no such pass, so the exchanges are written here by hand. Rank s
 of a spatial group of S (``mesh.model_parallel``) holds the rows ``[s * H /
 S, (s + 1) * H / S)`` of its data rank's images and labels, and of every
-map of the sharded region of an EMRT with a convolutional backbone
-(``models/emrt.py``: a ResNet, ResNeXt, ResNeSt or HRNet): the backbone
-(HRNet's four branches at strides 4 to 32 and its ``input_proj``), the
-spatial branch, the aux FCN head, ``cls_psp`` and ``uphead``. What crosses
-the region's edges:
+map of the sharded region of an EMRT (``models/emrt.py``, every backbone:
+a ResNet, ResNeXt, ResNeSt, HRNet, CSwin, ViT or the SegFormer-B4 MixViT):
+the backbone (HRNet's four branches at strides 4 to 32 and its
+``input_proj``; CSwin's and ViT's tap norms), the spatial branch, the aux
+FCN head, ``cls_psp`` and ``uphead``. What crosses the region's edges:
 
 * ``SpatialShard.window`` / ``halo``: a conv of kernel k, stride st,
   dilation d and top padding p over local rows divisible by st reads ``p``
@@ -41,18 +41,27 @@ the region's edges:
   effect) and spreads the sum over the rank's rows;
 * ``SpatialShard.gather_rows``: the whole map, every rank's rows in order,
   for the replicated region (the pyramid pooling, the deformable
-  encoder-decoder with K1-K3 at the full token count, EFP). Its backward
-  sums the gradient over the group and keeps the rank's rows: each rank's
-  loss covers only its own rows (``losses/cross_entropy.py``), so the
-  replicated region's gradient on a rank is its rows' part, and the sum of
-  the parts is the whole;
+  encoder-decoder with K1-K3 at the full token count, EFP), and the keys
+  and values of every attention of a transformer backbone, whose queries
+  are the rank's own tokens: each rank projects its own rows' keys and
+  values and the group gathers them (CSwin's stripes, with the zero rows
+  that pad the map to the stripe size after the image's last row, and
+  its LePE conv over the gathered stripes; the MixViT's keys and values
+  after the spatial-reduction conv, which sees only the rank's rows; ViT's
+  tokens after the cls token, which spatial rank 0 alone holds and which
+  leads its block). Its backward sums the gradient over the group and
+  keeps the rank's rows: each rank's loss covers only its own rows
+  (``losses/cross_entropy.py``), so the replicated region's gradient on a
+  rank is its rows' part, and the sum of the parts is the whole;
 * ``SpatialShard.own_rows``: a replicated map cut to the rank's rows
   (backward: zeros elsewhere), and ``resize_rows``, an align_corners=True
   bilinear resize of a replicated map that computes only the rank's
   output rows, each from the source row ``y (in - 1) / (out - 1)`` of the
   global frame;
 * dropout in the sharded region draws the full-height mask, as one process
-  draws it, and keeps the rank's rows (``models/layers.split_dropout``).
+  draws it, and keeps the rank's rows (``models/layers.split_dropout``; the
+  attention probabilities' mask along the queries); DropPath draws a value
+  a sample, alike on every rank.
 
 Every collective runs in float32 at least (exact for the forward's copies). The
 modules keep their weights, names and state-dict keys: ``shard_model_``
@@ -61,7 +70,8 @@ only changes how it runs in training mode; in eval mode the whole model runs
 on every rank, as the JAX package evaluates (data-sharded only). Under
 tensor parallelism too (PARALLEL.MODEL > 1) each rank of a model group
 shards its rows alike: the split transformer runs on the maps its spatial
-group gathered.
+group gathered, and a head-split ViT attention gathers its heads' keys
+and values over its spatial group.
 """
 from __future__ import annotations
 
@@ -134,19 +144,30 @@ class _Halo(torch.autograd.Function):
 
 
 class _GatherRows(torch.autograd.Function):
-    """Every rank's rows in order (dim 2); backward: the gradient summed over
-    the group, the rank's rows kept."""
+    """Every rank's rows in order along ``dim``, after the ``lead`` entries
+    that rank 0 alone holds before its rows (ViT's cls token); backward:
+    the gradient summed over the group, the rank's entries kept."""
 
     @staticmethod
-    def forward(ctx, x, shard):
-        ctx.shard, ctx.rows = shard, x.shape[2]
-        return torch.cat(_all_gather(x, shard.group, shard.world), 2).to(x.dtype)
+    def forward(ctx, x, shard, dim, lead):
+        ctx.shard, ctx.dim, ctx.length = shard, dim, x.shape[dim]
+        ctx.start = shard.block(x.shape[dim], lead)[0]
+        if lead and shard.rank:            # equal sizes for the all-gather
+            x = torch.cat([x.new_zeros(*x.shape[:dim], lead, *x.shape[dim + 1:]), x], dim)
+        parts = _all_gather(x, shard.group, shard.world)
+        parts = parts[:1] + [p.narrow(dim, lead, p.shape[dim] - lead) for p in parts[1:]]
+        return torch.cat(parts, dim).to(x.dtype)
 
     @staticmethod
     def backward(ctx, grad):
         g = _wide(grad)
         dist.all_reduce(g, group=ctx.shard.group)
-        return g.narrow(2, ctx.shard.rank * ctx.rows, ctx.rows).to(grad.dtype), None
+        return _GatherRows.own(ctx, g).to(grad.dtype), None, None, None
+
+    @staticmethod
+    def own(ctx, g):
+        """The rank's entries of ``g``, a gradient of the gathered whole."""
+        return g.narrow(ctx.dim, ctx.start, ctx.length)
 
 
 class _GlobalMean(torch.autograd.Function):
@@ -173,7 +194,7 @@ class _GlobalMean(torch.autograd.Function):
 class SpatialShard:
     """A sharded module's place in its spatial group: rank ``rank`` of
     ``world`` over ``group``, holding the ``rows(n)`` block of a map of n
-    rows. ``world`` and ``rank`` also serve ``layers.split_dropout``."""
+    rows (``block``: also of tokens, as ``layers.split_dropout`` reads it)."""
 
     def __init__(self, rank: int, world: int, group):
         self.rank, self.world, self.group = rank, world, group
@@ -182,6 +203,13 @@ class SpatialShard:
         """This rank's block of a map of ``n`` rows (n divisible by world)."""
         per = n // self.world
         return slice(self.rank * per, (self.rank + 1) * per)
+
+    def block(self, n: int, lead: int = 0) -> tuple[int, int]:
+        """(first, total) of the rank's ``n`` entries along a dim that the
+        group splits into equal blocks of rows or tokens, after ``lead``
+        entries that rank 0 alone holds (and counts in its ``n``)."""
+        per = n - (lead if self.rank == 0 else 0)
+        return (0 if self.rank == 0 else lead + self.rank * per), lead + self.world * per
 
     def _halos(self, x, top: int, bottom: int, mode: str):
         if max(top, bottom) > x.shape[2]:
@@ -236,9 +264,11 @@ class SpatialShard:
             parts.append(op(torch.cat([x[:, :, start:], below], 2), (0, 0)))
         return torch.cat(parts, 2)
 
-    def gather_rows(self, x) -> torch.Tensor:
-        """The whole map from every rank's rows (a collective of the group)."""
-        return _GatherRows.apply(x, self)
+    def gather_rows(self, x, dim: int = 2, lead: int = 0) -> torch.Tensor:
+        """The whole map from every rank's rows along ``dim`` (2 of NCHW, 1
+        of NHWC or of tokens [b, n, c]), after the ``lead`` entries that
+        rank 0 alone holds (a collective of the group)."""
+        return _GatherRows.apply(x, self, dim % x.dim(), lead)
 
     def own_rows(self, x) -> torch.Tensor:
         """This rank's rows of a replicated map (backward: zeros elsewhere)."""
@@ -301,12 +331,14 @@ class SpatialShard:
 def _deepest_halo(model) -> tuple[int, int]:
     """(rows, dilation) of the deepest halo that a conv of ``model``'s
     sharded region reads at its deepest stride (``model.spatial_deepest()``;
-    a "same" conv's top padding for rows divisible by its stride)."""
-    from ..models.layers import Conv2dSame, halo_rows, same_padding
+    a "same" conv's top padding for rows divisible by its stride). A conv
+    over a map every rank holds whole (CSwin's LePE over the gathered
+    stripes) reads none."""
+    from ..models.layers import Conv2dSame, HaloConv2d, halo_rows, same_padding
     best = (0, 1)
     for region in model.spatial_deepest():
         for m in region.modules():
-            if isinstance(m, nn.Conv2d):
+            if type(m) is nn.Conv2d or isinstance(m, (HaloConv2d, Conv2dSame)):
                 k, st, d = m.kernel_size[0], m.stride[0], m.dilation[0]
                 p = same_padding(k, st, d)[0] if isinstance(m, Conv2dSame) else m.padding[0]
                 best = max(best, (max(halo_rows(k, st, d, p)), d))
@@ -315,24 +347,18 @@ def _deepest_halo(model) -> tuple[int, int]:
 
 def check_spatial(model, spatial: int, crop_h: int):
     """Raise where ``spatial`` ranks cannot split ``model``'s rows at a crop
-    of ``crop_h`` rows: a model other than an EMRT with a ResNet, ResNeXt,
-    ResNeSt or HRNet backbone (``spatial_stride`` None: the transformer
-    backbones' EMRTs and the zoo), rows at the sharded region's deepest
-    stride (a ResNet's output stride, 32 for the others) that ``spatial``
-    does not divide, or a conv's halo there deeper than a rank's rows (the
-    dilation-4 convs of a ResNet at output stride 8 read 4 rows each
-    side)."""
+    of ``crop_h`` rows: a model other than an EMRT (``spatial_stride``
+    None: the zoo), rows at the sharded region's deepest stride (a ResNet's
+    output stride, ViT's patch 16, 32 for the others: then also the
+    MixViT's spatial-reduction convs, k = stride = 8, 4, 2 at strides 4 to
+    16, see only the rank's rows) that ``spatial`` does not divide, or a
+    conv's halo there deeper than a rank's rows (the dilation-4 convs of a
+    ResNet at output stride 8 read 4 rows each side)."""
     stride = getattr(model, "spatial_stride", None)
     if stride is None:
-        if getattr(model, "variant", None) in ("taps", "mit"):
-            raise NotImplementedError(
-                f"PARALLEL.SPATIAL {spatial}: the EMRT's transformer backbone (CSwin, ViT, "
-                f"SegFormer-B4) attends over all tokens, and its spatial sharding is not "
-                f"ported (ROADMAP.md queue 1, item 4)")
         raise NotImplementedError(
-            f"PARALLEL.SPATIAL {spatial}: spatial sharding is ported for EMRTs with a ResNet, "
-            f"ResNeXt, ResNeSt or HRNet backbone; not for {type(model).__name__} (the zoo: "
-            f"ROADMAP.md queue 1, item 5)")
+            f"PARALLEL.SPATIAL {spatial}: spatial sharding is ported for the EMRTs; not for "
+            f"{type(model).__name__} (the zoo: ROADMAP.md queue 1, item 5)")
     deepest = crop_h // stride
     if crop_h % stride or deepest % spatial:
         raise ValueError(f"PARALLEL.SPATIAL {spatial} does not divide the {crop_h / stride:g} "
@@ -345,12 +371,14 @@ def check_spatial(model, spatial: int, crop_h: int):
 
 
 def shard_model_(model, rank: int, world: int, group):
-    """Give the sharded region of ``model`` (an EMRT with a convolutional
-    backbone) rank ``rank``'s ``SpatialShard`` of ``world`` in place: its
-    convs halo exchange (``layers.HaloConv2d``; a ``Conv2dSame`` by its
-    global padding), its pools and resizes too, its dropout keeps the
-    rank's rows of the full mask, its BatchNorm over maps takes statistics
-    over the gradient group (data x spatial; ``sync_bn``), and the model
+    """Give the sharded region of ``model`` (an EMRT) rank ``rank``'s
+    ``SpatialShard`` of ``world`` in place: its convs halo exchange
+    (``layers.HaloConv2d``; a ``Conv2dSame`` by its global padding; not
+    CSwin's LePE conv, which runs over gathered stripes), its pools and
+    resizes too, its transformer blocks' attentions take the rank's queries
+    over every rank's keys and values (CSwin, ViT, the MixViT), its dropout
+    keeps the rank's rows of the full mask, its BatchNorm over maps takes
+    statistics over the gradient group (data x spatial; ``sync_bn``), and the model
     gathers and cuts rows at the region's edges. A BatchNorm over vectors
     (ResNeSt's gate after the global mean) holds the same values on every
     rank of the group and stays on the data group. Parameters, buffers and

@@ -321,18 +321,22 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_bwd_plan_fits_shared_memory(shape, batch, heads=8):
     """At every call shape the smoke run drives: the levels' f32 gV tiles in
     shared memory sit side by side within 227 KB, smallest levels first (the
-    same for f32 and bf16 values: the tiles are f32 for both), and the
-    query tiles cover Lq, split only while (b, h) are fewer than the SMs."""
+    same for f32 and bf16 values: the tiles are f32 for both), none where no
+    level's tile fits (three 48^2 levels: 288 KB each), and the query tiles
+    cover Lq, split only while (b, h) are fewer than the SMs."""
     _, levels, len_q = shape[:3]
     plan = deformable_cuda.bwd_plan(levels, 32, batch, heads, len_q)
     assert plan.smem_bytes <= 227 * 1024 == deformable_cuda.SMEM_PER_BLOCK
     spans = sorted((off * 4, off * 4 + h * w * 32 * 4)
                    for off, (h, w) in zip(plan.smem_offsets, levels) if off >= 0)
-    assert spans and spans[0][0] == 0 and spans[-1][1] == plan.smem_bytes
+    if min(h * w for h, w in levels) * 32 * 4 > deformable_cuda.SMEM_PER_BLOCK:
+        assert spans == [] and plan.smem_bytes == 0 and plan.needs_buffer
+    else:
+        assert spans and spans[0][0] == 0 and spans[-1][1] == plan.smem_bytes
     assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
     left_out = [h * w for off, (h, w) in zip(plan.smem_offsets, levels) if off < 0]
     kept = [h * w for off, (h, w) in zip(plan.smem_offsets, levels) if off >= 0]
-    assert not left_out or min(left_out) >= max(kept)
+    assert not (left_out and kept) or min(left_out) >= max(kept)
     assert plan.splits * plan.q_tile >= len_q > (plan.splits - 1) * plan.q_tile
     assert plan.splits == 1 or batch * heads * plan.splits <= deformable_cuda.H100_SMS
 
@@ -388,24 +392,30 @@ def test_fwd_plan_fits_shared_memory(shape, batch, dtype, heads=8):
     memory; a plan that stages nothing has tiles of under 128 queries that,
     staged, would not fit the card in one wave."""
     _, levels, len_q = shape[:3]
+    size = dtype.itemsize
     plan = deformable_cuda.fwd_plan(levels, 32, dtype, batch, heads, len_q)
     staged = deformable_cuda.fwd_plan(levels, 32, dtype, batch, heads, len_q, stage=True)
     assert staged.q_tile == plan.q_tile
-    if not plan.staged:
+    # no slab fits (three 48^2 levels in f32: 288 KB each): every level read
+    # from global memory, staged or not
+    none_fits = min(h * w for h, w in levels) * 32 * size > deformable_cuda.SMEM_PER_BLOCK
+    if not plan.staged and not none_fits:
         assert plan.smem_offsets == (-1,) * len(levels) and plan.smem_bytes == 0
         assert plan.blocks_per_sm == 2 and plan.q_tile < deformable_cuda.FWD_MIN_STAGE_QUERIES
         slots = deformable_cuda.H100_SMS * staged.blocks_per_sm
         assert batch * heads * plan.splits > slots
         plan = staged
-    size = dtype.itemsize
     assert plan.smem_bytes <= deformable_cuda.SMEM_PER_BLOCK
     spans = sorted((off, off + h * w * 32 * size)
                    for off, (h, w) in zip(plan.smem_offsets, levels) if off >= 0)
-    assert spans and spans[0][0] == 0 and spans[-1][1] == plan.smem_bytes
+    if none_fits:
+        assert spans == [] and plan.smem_bytes == 0 and staged == plan
+    else:
+        assert spans and spans[0][0] == 0 and spans[-1][1] == plan.smem_bytes
     assert all(a[1] == b[0] and a[0] % 16 == 0 for a, b in zip(spans, spans[1:]))
     left_out = [h * w for off, (h, w) in zip(plan.smem_offsets, levels) if off < 0]
     kept = [h * w for off, (h, w) in zip(plan.smem_offsets, levels) if off >= 0]
-    assert not left_out or min(left_out) >= max(kept)
+    assert not (left_out and kept) or min(left_out) >= max(kept)
     assert 1 <= plan.blocks_per_sm <= 2
     assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= deformable_cuda.SMEM_PER_SM
     two_fit = 2 * (plan.smem_bytes + 1024) <= deformable_cuda.SMEM_PER_SM

@@ -9,9 +9,12 @@ are in ``test_torch_spatial_ranks.py``):
   padding; uphead's 2x resize, with the edge row at the image's edges;
   HRNet's align_corners=False x2, x4 and x8 upsamples) over S = 2 and 4
   ranks, the align_corners=True resize of a replicated map to the rank's
-  rows, and ResNeSt's global mean with the gate's BatchNorm1d after it (a
+  rows, ResNeSt's global mean with the gate's BatchNorm1d after it (a
   replicated output, each rank's loss holding an unequal share of its
-  gradient), against the whole-image op: the ranks' outputs and input
+  gradient), and the transformer backbones' gather of every rank's rows
+  (replicated too) and dropout over rows, each over a map whose first row
+  spatial rank 0 holds alone (ViT's cls token), against the whole-image op:
+  the ranks' outputs and input
   gradients are the whole one's rows (the row resize's input gradients, of
   the replicated map, summed over the ranks; the global mean's outputs the
   whole one's on every rank), their weight gradients sum to the whole
@@ -21,11 +24,12 @@ are in ``test_torch_spatial_ranks.py``):
   rows) is wrong inside the image: its last row must read the next rank's
   first row;
 - the grid: rank r = (d * MODEL + m) * SPATIAL + s and its groups;
-- ``check_parallel`` accepts SPATIAL 2 for the ResNet, ResNeXt, ResNeSt and
-  HRNet EMRTs at a 256 crop, with MODEL 2 on four ranks and with OHEM, and
-  refuses it for the CSwin, ViT and SegFormer-B4 EMRTs and the zoo, where
-  it does not divide the rows at the output stride, and where a dilated
-  conv's halo is deeper than a rank's rows.
+- ``check_parallel`` accepts SPATIAL 2 for every EMRT (ResNet, ResNeXt,
+  ResNeSt, HRNet, CSwin, ViT, SegFormer-B4) at a 256 crop, with MODEL 2 on
+  four ranks and with OHEM, and refuses it for the zoo, where it does not
+  divide the rows at the deepest stride (ViT's 16 rows at stride 16 by 3;
+  the others' 8 rows at stride 32 by 16), and where a dilated conv's halo
+  is deeper than a rank's rows.
 
 The train step under dp x sp is in ``test_torch_spatial_train.py``.
 """
@@ -170,13 +174,22 @@ def test_check_parallel_accepts_spatial_for_a_conv_emrt(spatial, model, encoder,
     check_parallel(cfg, 2 * spatial * model, _meta_model(encoder, stride, name))
 
 
+@pytest.mark.parametrize("spatial, model, encoder, name", [
+    (2, 1, "cswintransformer", "EMRT_CSwin"), (2, 1, "vit", "EMRT_ViT"),
+    (2, 1, "segformer_b4", None), (2, 2, "vit", "EMRT_ViT")],
+    ids=["cswin", "vit", "segformer_b4", "vit-tp-x-sp"])
+def test_check_parallel_accepts_spatial_for_a_transformer_emrt(spatial, model, encoder, name):
+    cfg = _config(SPATIAL=spatial, MODEL=model)
+    check_parallel(cfg, 2 * spatial * model, _meta_model(encoder, 32, name))
+
+
 @pytest.mark.parametrize("overrides, world, model, exc, match", [
-    ({"SPATIAL": 2}, 2, ("cswintransformer", 32, "EMRT_CSwin"), NotImplementedError,
-     "transformer backbone .*ROADMAP.md queue 1, item 4"),
-    ({"SPATIAL": 2}, 2, ("vit", 32, "EMRT_ViT"), NotImplementedError,
-     "transformer backbone .*ROADMAP.md queue 1, item 4"),
-    ({"SPATIAL": 2}, 2, ("segformer_b4", 32, None), NotImplementedError,
-     "transformer backbone .*ROADMAP.md queue 1, item 4"),
+    ({"SPATIAL": 16}, 16, ("cswintransformer", 32, "EMRT_CSwin"), ValueError,
+     "SPATIAL 16 does not divide the 8 rows of a 256-row crop at output stride 32"),
+    ({"SPATIAL": 3}, 3, ("vit", 32, "EMRT_ViT"), ValueError,
+     "SPATIAL 3 does not divide the 16 rows of a 256-row crop at output stride 16"),
+    ({"SPATIAL": 16}, 16, ("segformer_b4", 32, None), ValueError,
+     "SPATIAL 16 does not divide the 8 rows of a 256-row crop at output stride 32"),
     ({"SPATIAL": 2}, 2, "zoo", NotImplementedError,
      "not for SETR .*ROADMAP.md queue 1, item 5"),
     ({"SPATIAL": 16}, 16, ("resnet50", 32, None), ValueError,

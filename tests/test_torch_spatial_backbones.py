@@ -72,6 +72,16 @@ def _one(kind):
     return grid_step_rank(0, 1, 1, 1, kind, None, image, label, DROPOUT, dtype=DTYPES[kind])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _free_the_steps():
+    """The cached steps hold every parameter's gradient and state, ranks
+    by runs: free them once this file's tests are done (a worker of the
+    suite runs many files)."""
+    yield
+    _sp2_runs.cache_clear()
+    _one.cache_clear()
+
+
 @pytest.mark.parametrize("kind", list(BACKBONES))
 def test_dp1_x_sp2_step_of_the_emrt_is_one_processs_step(kind):
     ranks = _sp2_runs()[list(BACKBONES).index(kind)]

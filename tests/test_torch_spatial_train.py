@@ -83,6 +83,16 @@ def _one(state_path, dtype):
     return grid_step_rank(0, 1, 1, 1, "r50", state_path, image, label, DROPOUT, dtype=dtype)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _free_the_steps():
+    """The cached steps hold every parameter's gradient and state, ranks
+    by runs: free them once this file's tests are done (a worker of the
+    suite runs many files)."""
+    yield
+    _sp2_runs.cache_clear()
+    _one.cache_clear()
+
+
 def _failures(got, want, dtype) -> list:
     """The checks of the step ``got`` against ``want`` that it fails."""
     flat = lambda r: np.concatenate([v.ravel() for v in r["grads"].values()])  # noqa: E731

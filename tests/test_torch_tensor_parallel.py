@@ -6,8 +6,8 @@ gloo ranks on the CPU (``parallel.launch``; the ranks' halves are in
   ``tp_rule`` splits in the tiny EMRT-R50 (under the ``.pdparams`` key map),
   each rank's shard is the one ``tp_shard_params`` gives its device (through
   ``state_dict_from_flax``), and gathering the shards gives the whole state;
-- ``check_parallel`` refuses SPATIAL 2 with MODEL 2 for a ViT EMRT (its
-  transformer backbone is not sharded by rows) and accepts it for the
+- ``check_parallel`` refuses SPATIAL 3 with MODEL 2 for a ViT EMRT (3 does
+  not divide its 4 patch rows) and accepts SPATIAL 2 with MODEL 2 for the
   EMRT-R50 on four ranks, and refuses a MODEL that does not divide the
   world and one that does not divide the heads or the FFN's width;
 - one train step of the tiny EMRT-R50 on four ranks as dp2 x tp2 against the
@@ -130,8 +130,8 @@ def _tiny_vit_emrt():
 
 
 @pytest.mark.parametrize("overrides, world, exc, match", [
-    ({"SPATIAL": 2, "MODEL": 2}, 4, NotImplementedError,
-     "transformer backbone .*ROADMAP.md queue 1, item 4"),
+    ({"SPATIAL": 3, "MODEL": 2}, 6, ValueError,
+     "SPATIAL 3 does not divide the 4 rows of a 64-row crop at output stride 16"),
     ({"MODEL": 3}, 4, ValueError, "PARALLEL.MODEL 3 does not divide the 4"),
     ({"MODEL": 2, "DATA": 1}, 4, ValueError, "PARALLEL.DATA 1 x PARALLEL.MODEL 2"),
     ({"MODEL": 3}, 3, ValueError, "the 8 heads of model.encoder.layers.0.self_attn"),

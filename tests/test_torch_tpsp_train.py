@@ -82,6 +82,16 @@ def _one(state_path):
     return grid_step_rank(0, 1, 1, 1, "r50", state_path, image, label, DROPOUT)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _free_the_steps():
+    """The cached steps hold every parameter's gradient and state, ranks
+    by runs: free them once this file's tests are done (a worker of the
+    suite runs many files)."""
+    yield
+    _tpsp_runs.cache_clear()
+    _one.cache_clear()
+
+
 def _assert_replicated_equal(ranks):
     for r in ranks[1:]:
         for key, value in ranks[0]["replicated"].items():
