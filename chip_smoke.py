@@ -192,13 +192,34 @@ also hold the kernels at ViT-L's calls at 768^2 (three 48^2 levels, Lq
 6,912 and 110), and ``time_fwd`` / ``time_bwd`` time them. Phase 10 (b)
 and (e)'s rank steps run in one start of the two ranks, and (e)'s one
 process after them; phase 11 (a) and (d)'s alike (``sharded_steps``): a
-start of the ranks costs 20-25 s.
+start of the ranks costs 20-25 s. The whole script runs phase 11 (a) and
+(b) at a cut depth (DEPTH_CUT: CSwin's stage 3 at 2 of its 21 blocks,
+ViT-L at 8 of its 24 layers), to make room for phase 12 in its time
+limit; ``--transformer-sp`` runs them at full depth.
+Phase 12 drives spatial parallelism of the zoo's global-attention models,
+which shard whole (every module on a rank's rows: the heads' resizes with
+a halo row, DPT's readout of spatial rank 0's cls token on every rank,
+the Segmenter's class tokens replicated), at full width and depth with
+seeded weights, each rank a process of its own on the one card over gloo.
+(a) One float32 dp1 x sp2 step of phase 7's 8 rows at 256^2, dropout 0.1
+on every dropout layer and DropPath at the yamls' rates, of SETR-PUP-L
+(SETR_PUP_Large_256x256_160k_potsdam_bs_8.yaml), SETR-MLA-L, DPT-L
+(readout ``project``), the Segmenter ViT-L and DeiT-B distilled with the
+mask transformer, and SegFormer-B5 (the 512^2 yamls built at a 256 crop;
+a clip of 1.0 where the yaml sets none), each against one process's step
+with phase 10 (b)'s checks and bounds (``sharded_steps``); (b) SETR-PUP-L's
+dp1 x tp2 x sp2 step with phase 10 (a)'s; (c) no launch of K1 or the
+backward in any rank's step; (d) phase 9 (d)'s bf16 step of SETR-PUP-L at
+2 x 768^2 (the cityscapes yaml's crop), one process against each dp1 x
+sp2 rank (ms, peak memory, the activations of ``encoder``, ``decoder``
+and the ``aux_decoder*`` heads).
 
 Any failed check raises, and the script then exits non-zero without the
 final line. ``python3 chip_smoke.py --tp-step`` runs phase 0 and phase 8's
 dp1 x tp2 step alone, ``--sp-step`` phase 0 and phase 9 without (c),
 ``--tpsp-step`` phase 0 and phase 10 without (d), ``--transformer-sp``
-phase 0 and phase 11, ``--norm-seeds`` phase 0
+phase 0 and phase 11 at full depth, ``--zoo-sp`` phase 0 and phase 12,
+``--norm-seeds`` phase 0
 and phase 10 (b) from each seed of NORM_SEEDS (every reading printed
 before a check fails),
 ``--train-step`` phase 0 and phase 3c's timing of one process's bf16 bs-8
@@ -2450,7 +2471,21 @@ SP_CALLS = [("bwd", HEADS, 110), ("bwd", HEADS, 1344), ("fwd", HEADS, 110),
 # (d): where activations dominate: 1024^2 crops, 2 a step (bf16, output stride
 # 32, so 2 divides the 32 rows at stride 32)
 SP_LARGE_CROP, SP_LARGE_BS, SP_TIMED = 1024, 2, 3
+# the float32 rank steps held against one process's: one more step timed
+# after the checked one (the ranks share one card over gloo: a smoke figure)
+GRID_TIMED = 1
 SP_TORCHRUN_ITERS = 2
+
+
+def _built_on(cfg, device, dtype):
+    """``get_model(cfg)`` built on ``device`` itself: a rank's one thread
+    takes ~6 s to initialise a ViT-L's weights on the host. Its weights
+    then come from the device's generator (seeded alike by
+    ``torch.manual_seed``), so a caller that compares weights loads them."""
+    import torch
+    from emrt_tpu_torch.models import get_model
+    with torch.device(device):
+        return get_model(cfg, device=device, dtype=dtype)
 
 
 def _grid_step(cfg, device, init=None, dropout=None):
@@ -2462,7 +2497,6 @@ def _grid_step(cfg, device, init=None, dropout=None):
     import torch
     from torch.nn.parallel import DistributedDataParallel
     from emrt_tpu_torch.losses import get_loss_function
-    from emrt_tpu_torch.models import get_model
     from emrt_tpu_torch.parallel import convert_sync_batchnorm
     from emrt_tpu_torch.parallel.mesh import gradient_group, gradient_world
     from emrt_tpu_torch.parallel.spatial import shard_for_the_group
@@ -2470,7 +2504,7 @@ def _grid_step(cfg, device, init=None, dropout=None):
     from emrt_tpu_torch.solver import get_optimizer, get_scheduler
     from emrt_tpu_torch.train import make_train_step
     dtype = torch.float32 if cfg.TRAIN.DTYPE == "float32" else torch.bfloat16
-    model = get_model(cfg, device=device, dtype=dtype)
+    model = _built_on(cfg, device, dtype)
     if init is not None:
         model.load_state_dict(init)
     _set_kernel_and_dropout(model, dropout=dropout)
@@ -2480,7 +2514,7 @@ def _grid_step(cfg, device, init=None, dropout=None):
     optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
     trained = model if gradient_world() == 1 else DistributedDataParallel(
         model, device_ids=[device], broadcast_buffers=False, process_group=gradient_group(),
-        find_unused_parameters=model.ddp_find_unused_parameters)
+        find_unused_parameters=getattr(model, "ddp_find_unused_parameters", False))
     return model, optimizer, make_train_step(trained, get_loss_function(cfg), optimizer), split
 
 
@@ -2514,7 +2548,6 @@ def large_step_rank(rank, world, devices, path=str(CONFIG), regions=SP_REGIONS,
 
     import torch
     from emrt_tpu_torch.losses import get_loss_function
-    from emrt_tpu_torch.models import get_model
     from emrt_tpu_torch.parallel.mesh import model_parallel
     from emrt_tpu_torch.solver import get_optimizer, get_scheduler
     from emrt_tpu_torch.train import make_train_step
@@ -2530,7 +2563,7 @@ def large_step_rank(rank, world, devices, path=str(CONFIG), regions=SP_REGIONS,
     torch.manual_seed(0)
     with model_parallel(1, world):
         if world == 1:
-            model = get_model(cfg, device=device, dtype=torch.bfloat16)
+            model = _built_on(cfg, device, torch.bfloat16)
             step = make_train_step(model, get_loss_function(cfg),
                                    get_optimizer(cfg, model, get_scheduler(cfg)))
         else:
@@ -2582,7 +2615,7 @@ def grid_step_rank(rank, world, devices, reference, grid, path=str(CONFIG), over
     ``GradientSync`` gave them model rank 0's, the SHA-256 of the gathered
     state and of the rank's replicated parameters after the step, its
     kernels' launches, heads and query counts, and its peak memory; then
-    the median ms of SP_TIMED more steps."""
+    the ms of GRID_TIMED more steps."""
     import hashlib
 
     import torch
@@ -2641,10 +2674,15 @@ def grid_step_rank(rank, world, devices, reference, grid, path=str(CONFIG), over
         grads = torch.cat(grads).cpu()
         out["grad_rel"] = ((grads - ref["grads"]).norm() / ref["grads"].norm()).item()
         stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
-        out["stats_rel"] = max(((stats[k] - v).abs().max() / v.abs().max()).item()
-                               for k, v in ref["stats"].items())
+        out["stats_rel"] = max((((stats[k] - v).abs().max() / v.abs().max()).item()
+                                for k, v in ref["stats"].items()), default=0.0)
         out["n_stats"], out["n_split"] = len(stats), len(split)
         out["n_stats_ref"] = len(ref["stats"])
+        # a BatchNorm keeps two running statistics (the Segmenter has none)
+        out["n_bn"] = sum(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                          for m in model.modules())
+        out["n_replicated"] = sum(p.grad is not None for n, p in model.named_parameters()
+                                  if n not in split)
         digest = hashlib.sha256()
         for value in gather_model_state(model).values():
             digest.update(value.cpu().numpy().tobytes())
@@ -2654,7 +2692,7 @@ def grid_step_rank(rank, world, devices, reference, grid, path=str(CONFIG), over
             if name not in split:
                 digest.update(p.detach().cpu().numpy().tobytes())
         out["replicated_sha256"] = digest.hexdigest()
-        out["step_ms"] = cuda_ms(lambda: step(batch), reps=SP_TIMED, warmup=0)
+        out["step_ms"] = cuda_ms(lambda: step(batch), reps=GRID_TIMED, warmup=0)
         del model, optimizer, step, grads
         torch.cuda.empty_cache()
     return out
@@ -2680,18 +2718,24 @@ def grid_step_failures(out, calls, n_split=TP_SPLIT) -> list[str]:
          f"loss {out['loss']} vs one process's {out['loss_ref']} (rtol {DP_LOSS_RTOL})"),
         (out["grad_rel"] <= TRAIN_BN_GRAD_RTOL,
          f"gradients differ by {out['grad_rel']} (L2, tol {TRAIN_BN_GRAD_RTOL})"),
-        (out["n_stats"] == out["n_stats_ref"] > 0 and out["stats_rel"] <= DP_STATS_TOL,
-         f"running statistics ({out['n_stats']} tensors, one process {out['n_stats_ref']}) "
+        (out["n_stats"] == out["n_stats_ref"] == 2 * out["n_bn"]
+         and out["stats_rel"] <= DP_STATS_TOL,
+         f"running statistics ({out['n_stats']} tensors, one process {out['n_stats_ref']}, "
+         f"{out['n_bn']} BatchNorms) "
          f"differ by {out['stats_rel']} x max (tol {DP_STATS_TOL})"),
         (abs(out["norm"] - out["norm_ref"]) <= norm_tol(out) * out["norm_ref"],
          f"gradient norm {out['norm']} vs one process's {out['norm_ref']} "
          f"(rtol {norm_tol(out):.3e})"),
-        (tuple(out["launches_a"]) == (6, 6),
+        (tuple(out["launches_a"]) == ((6, 6) if calls else (0, 0)),
          f"a step launched forward/backward {out['launches_a']}"),
         (out["calls"] == calls, f"the kernels ran as {out['calls']}, not {calls} "
                                 f"(kind, heads, queries)")]
     if out["n_split"]:
-        checks += [(out["n_spread"] > 300 and out["spread"][1] <= TP_SPREAD_TOL,
+        # most replicated gradients held: more than 300 (of the flagship's
+        # 362, ViT-L EMRT's 431), or five in six of a model with fewer
+        # (SETR-PUP-L's 272)
+        checks += [(out["n_spread"] > min(300, 5 * out["n_replicated"] // 6)
+                    and out["spread"][1] <= TP_SPREAD_TOL,
                     f"the replicated gradient {out['spread'][0]} differs over the model group "
                     f"by {out['spread'][1]} x its max (tol {TP_SPREAD_TOL})"),
                    (out["n_split"] == n_split,
@@ -2910,7 +2954,7 @@ def report_grid_step(card, what, ranks, grid, calls, seconds=None, strict=True,
           f"{ranks[0]['state_sha256'][:16]}, {ranks[0]['replicated_sha256'][:16]})")
     step_ms = ", ".join(f"{out['step_ms']:.2f}" for out in ranks)
     peaks = ", ".join(f"{out['peak_gib']:.3f}" for out in ranks)
-    print(f"{what}: float32 steps a rank {step_ms} ms (median of {SP_TIMED}, CUDA "
+    print(f"{what}: float32 steps a rank {step_ms} ms (median of {GRID_TIMED}, CUDA "
           f"events), peak memory {peaks} GiB ({card}; the ranks share one card over gloo: "
           f"not a scaling figure)")
     return tuple(sum(out["launches_a"][i] for out in ranks) for i in range(2)), failures
@@ -2929,7 +2973,10 @@ def _backbone_reference(tmp, name, path, pairs=(), seed=0):
 
 def _encoder_calls(heads, len_q):
     """The kernels' calls of one EMRT step: the decoder's at 110 queries and
-    the encoder's at ``len_q``, forward and backward, at ``heads``."""
+    the encoder's at ``len_q``, forward and backward, at ``heads``; none for
+    a zoo model (``len_q`` None), which runs no deformable attention."""
+    if len_q is None:
+        return []
     return [("bwd", heads, 110), ("bwd", heads, len_q), ("fwd", heads, 110),
             ("fwd", heads, len_q)]
 
@@ -3045,31 +3092,102 @@ SP_TRANSFORMERS = (
 # (b): ViT-L's split parameters under tp2: the flagship's and 3 in each of its
 # 24 attentions (qkv weight and bias, the output projection's weight)
 VIT_SPLIT = TP_SPLIT + 24 * 3
+# the whole script's depth cut of (a) and (b) (``--transformer-sp`` runs them
+# at full depth), to make room for phase 12 in its time limit: CSwin two blocks
+# in stage 3 (of 21), ViT-L two layers a tap (8 of 24; (b)'s split parameters
+# then the flagship's and 3 in each of 8 attentions)
+DEPTH_CUT = {"CSwin": (("MODEL.TRANS.STAGE_DEPTHS", "(1, 2, 2, 1)"),),
+             "ViT-L": (("MODEL.TRANS.NUM_LAYERS", "8"),
+                       ("MODEL.ENCODER.OUT_INDICES", "(1, 3, 5, 7)"))}
+VIT_CUT_SPLIT = TP_SPLIT + 8 * 3
 
 
-def phase11(card):
+def phase11(card, cut=False):
     """Spatial parallelism of the transformer-backbone EMRTs (CSwin, ViT-L,
-    SegFormer-B4) at full width and depth with seeded weights, the ranks on
-    the one card over gloo: (a) each one's dp1 x sp2 step and (b) ViT-L's
-    dp1 x tp2 x sp2 step against one process's, (c) their kernels' launches,
-    (d) peak memory a rank against one process's. Returns the forward and
-    backward launches of the ranks' steps and (d)'s ratios."""
+    SegFormer-B4) at full width with seeded weights, the ranks on the one
+    card over gloo: (a) each one's dp1 x sp2 step and (b) ViT-L's dp1 x tp2
+    x sp2 step against one process's, at full depth or, with ``cut``, at
+    DEPTH_CUT's, (c) their kernels' launches, (d) peak memory a rank against
+    one process's at full depth. Returns the forward and backward launches
+    of the ranks' steps and (d)'s ratios."""
     import tempfile
 
     import torch
     torch.cuda.empty_cache()
+    depth = (lambda name: DEPTH_CUT.get(name, ())) if cut else (lambda name: ())
     with tempfile.TemporaryDirectory() as tmp:
         launches, ratios = sharded_steps(
-            card, "phase 11", tmp, [(name, path, (), len_q) for name, path, len_q, *_ in
-                                    SP_TRANSFORMERS],
+            card, "phase 11", tmp, [(name, path, depth(name), len_q)
+                                    for name, path, len_q, *_ in SP_TRANSFORMERS],
             [(f"{name} EMRT", path, regions, crop)
              for name, path, _, crop, regions in SP_TRANSFORMERS], ("(a)", "(d)"))
         name, path, len_q, _, _ = SP_TRANSFORMERS[1]
-        got, _ = phase10_backbone(card, tmp, name, path, {}, len_q, what="phase 11 (b)",
-                                  grid=TPSP_GRID, n_split=VIT_SPLIT)
+        got, _ = phase10_backbone(card, tmp, name, path, dict(depth(name)), len_q,
+                                  what="phase 11 (b)", grid=TPSP_GRID,
+                                  n_split=VIT_CUT_SPLIT if cut else VIT_SPLIT)
         launches = tuple(a + b for a, b in zip(launches, got))
-    print(f"phase 11: K1 / K2-K3 launches in the ranks' steps: {launches}")
+    print(f"phase 11: K1 / K2-K3 launches in the ranks' steps{' (depth cut)' if cut else ''}: "
+          f"{launches}")
     return launches, ratios
+
+
+# ------------------------------ phase 12: SP of the zoo's global-attention models
+
+ZOO_SP_CROP = (("DATA.CROP_SIZE", "(256, 256)"),)
+# a clip of 1.0 where the yaml sets none (SETR-MLA's and SegFormer's ADE20K
+# yamls), so that the optimizer computes the gradient norm the checks read
+ZOO_SP_CLIP = ZOO_SP_CROP + (("TRAIN.OPTIMIZER.GRAD_CLIP", "1.0"),)
+# (a): dp1 x sp2 of the zoo's global-attention models at full width and depth,
+# at 256^2 (phase 7's 8 rows): (name, yaml under configs/, config pairs); SETR-PUP-L
+# at its yaml's own crop, the others built at the crop overridden (their
+# position tables with it)
+SP_ZOO = (
+    ("SETR-PUP-L", "setr/SETR_PUP_Large_256x256_160k_potsdam_bs_8.yaml", ()),
+    ("SETR-MLA-L", "setr/SETR_MLA_Large_512x512_160k_ade20k.yaml", ZOO_SP_CLIP),
+    ("DPT-L project", "dpt/DPT_Large_512x512_160k_potsdam_bs_8.yaml", ZOO_SP_CROP),
+    ("Segmenter ViT-L mask", "segmenter/segmenter_Large_512x512_160k_ade20k_bs_16.yaml",
+     ZOO_SP_CROP),
+    ("Segmenter DeiT-B distilled mask",
+     "segmenter/segmenter_base_distilled_512x512_160k_ade20k_bs_16.yaml", ZOO_SP_CROP),
+    ("SegFormer-B5", "segformer/segformer_b5_512x512_160k_ade20k.yaml", ZOO_SP_CLIP))
+# (b): SETR-PUP-L's split parameters under tp2: 3 in each of its 24 attentions
+SETR_SPLIT = 24 * 3
+# (d): SETR-PUP-L's bf16 memory step at the cityscapes yaml's 768^2 crop, 2 a
+# step (the yaml's batch of 8 one card holds neither whole nor in two ranks),
+# and the regions whose activations it reads
+SETR_768 = ROOT / "configs" / "setr" / "SETR_PUP_Large_768x768_80k_cityscapes.yaml"
+SETR_REGIONS = ("encoder", "decoder", "aux_decoder2", "aux_decoder3", "aux_decoder4",
+                "aux_decoder5")
+
+
+def phase12(card):
+    """Spatial parallelism of the zoo's global-attention models (SETR, DPT,
+    the Segmenter, SegFormer: the whole model on a rank's rows) at full
+    width and depth with seeded weights, the ranks on the one card over
+    gloo: (a) each of SP_ZOO's dp1 x sp2 f32 steps against one process's
+    (``sharded_steps``, phase 10 (b)'s checks and bounds), (b) SETR-PUP-L's
+    dp1 x tp2 x sp2 step with phase 10 (a)'s, (c) no launch of K1 or the
+    backward in any rank's step (the zoo runs no deformable attention), (d)
+    SETR-PUP-L's bf16 peak memory a rank against one process's at 2 x
+    768^2. Returns the launches of the ranks' steps and (d)'s ratio."""
+    import tempfile
+
+    import torch
+    torch.cuda.empty_cache()
+    configs = ROOT / "configs"
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, ratios = sharded_steps(
+            card, "phase 12", tmp, [(name, configs / yaml, pairs, None)
+                                    for name, yaml, pairs in SP_ZOO],
+            [("SETR-PUP-L", SETR_768, SETR_REGIONS, 768)], ("(a)", "(d)"))
+        name, yaml, pairs = SP_ZOO[0]
+        got, _ = phase10_backbone(card, tmp, name, configs / yaml, dict(pairs), None,
+                                  what="phase 12 (b)", grid=TPSP_GRID, n_split=SETR_SPLIT)
+        launches = tuple(a + b for a, b in zip(launches, got))
+    check(launches == (0, 0), f"phase 12 (c): the zoo's rank steps launched K1 / K2-K3 "
+                              f"{launches} times")
+    print(f"phase 12 (c): K1 / K2-K3 launches in the ranks' steps: {launches}")
+    return launches, ratios["SETR-PUP-L"]
 
 
 _CATEGORIES = (   # (category, substrings of a kernel's name), first match wins
@@ -3172,8 +3290,10 @@ def main():
     ended("phase 9")
     tpsp_launches, _ = phase10(card)
     ended("phase 10")
-    sp_transformer_launches, _ = phase11(card)
+    sp_transformer_launches, _ = phase11(card, cut=True)
     ended("phase 11")
+    sp_zoo_launches, _ = phase12(card)
+    ended("phase 12")
     from emrt_tpu_torch.ops import deformable_cuda
     name, levels, len_q = SHAPES[0]
     fwd = fwd_times[name, BS, torch.bfloat16]
@@ -3215,6 +3335,7 @@ def main():
          "launches_dp": dp_launches[0], "launches_tp": tp_launches[0],
          "launches_sp": sp_launches[0], "launches_tpsp": tpsp_launches[0],
          "launches_sp_transformer": sp_transformer_launches[0],
+         "launches_sp_zoo": sp_zoo_launches[0],
          "max_abs_err": max_err, "ms": fwd["random"], "ms_on_the_grid": fwd["on the grid"],
          "ms_bs8": fwd_times[name, TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": fwd["plain"], "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
@@ -3229,6 +3350,7 @@ def main():
          "launches_dp": dp_launches[1], "launches_tp": tp_launches[1],
          "launches_sp": sp_launches[1], "launches_tpsp": tpsp_launches[1],
          "launches_sp_transformer": sp_transformer_launches[1],
+         "launches_sp_zoo": sp_zoo_launches[1],
          "max_abs_err": bwd_err, "ms": bwd["random"], "ms_on_the_grid": bwd["on the grid"],
          "ms_bs8": bwd_times[SHAPES[0][0], TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": bwd["plain"], "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],
@@ -3274,6 +3396,14 @@ def main_transformer_sp():
     print("chip_smoke.py --transformer-sp: passed")
 
 
+def main_zoo_sp():
+    """``--zoo-sp``: phase 0, then phase 12 ((a)-(d) over gloo, the ranks on
+    the first card)."""
+    card = phase0()
+    phase12(card)
+    print("chip_smoke.py --zoo-sp: passed")
+
+
 def main_norm_seeds():
     """``--norm-seeds``: phase 0, then phase 10 (b) from each seed of
     NORM_SEEDS (the weights, the batch and the dropout masks), every
@@ -3300,7 +3430,7 @@ def main_train_step():
 if __name__ == "__main__":
     modes = {"--tp-step": main_tp_step, "--sp-step": main_sp_step,
              "--tpsp-step": main_tpsp_step, "--transformer-sp": main_transformer_sp,
-             "--norm-seeds": main_norm_seeds,
+             "--zoo-sp": main_zoo_sp, "--norm-seeds": main_norm_seeds,
              "--train-step": main_train_step}
     if sys.argv[1:] and sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")

@@ -9,7 +9,11 @@ made for one input size (``img_size``), as the ViT's. forward(images) ->
 final norm (the JAX Segmenter reads the last layer only). A table of
 another size is not re-interpolated: the JAX loader treats the first row
 alone as the prefix, and so a DeiT table of another size raises in both
-packages (ROADMAP.md queue 3, F10).
+packages (ROADMAP.md queue 3, F10). Under a spatial shard
+(``parallel/spatial.py``) it runs as the ViT does with two prefix tokens
+(``lead`` 2 on its attentions and dropouts): spatial rank 0 alone holds
+the class and distillation tokens, each rank its patch rows and their rows
+of the position table.
 
 Parameter names are the reference's (``deit_backbone_map``), under the
 Segmenter's ``encoder``: ``patch_embed.proj``, ``pos_embed``,
@@ -21,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..layers import Mlp, layer_norm, xavier_uniform_
+from ..layers import Mlp, RowDropout, layer_norm, sharded, xavier_uniform_
 from .vit import Attention
 
 
@@ -45,7 +49,7 @@ class Block(nn.Module):
         super().__init__()
         self.norm1 = layer_norm(dim)
         self.attn = _Attention(dim, num_heads, attn_dropout)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout, 1)
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout)
 
@@ -61,6 +65,8 @@ class _PatchEmbed(nn.Module):
 
 
 class DeiT(nn.Module):
+    spatial = None
+
     def __init__(self, img_size=(512, 512), patch_size: int = 16, hidden_size: int = 768,
                  num_layers: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  dropout: float = 0.0, attn_dropout: float = 0.0):
@@ -72,20 +78,30 @@ class DeiT(nn.Module):
         self.pos_embed = nn.Parameter(
             nn.init.trunc_normal_(torch.empty(1, 2 + self.grid[0] * self.grid[1], hidden_size),
                                   std=0.02, a=-0.04, b=0.04))
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout, 1)
         self.layers = nn.ModuleList(Block(hidden_size, num_heads, mlp_ratio, dropout,
                                           attn_dropout) for _ in range(num_layers))
+        # under a spatial shard the two prefix tokens lead spatial rank 0's tokens
+        for m in self.modules():
+            if isinstance(m, (Attention, RowDropout)):
+                m.lead = 2
 
     def forward(self, x):
         x = self.patch_embed.proj(x)
-        if tuple(x.shape[2:]) != self.grid:
-            raise ValueError(f"input {tuple(x.shape[2:])} patches, position table for "
+        shard = sharded(self)
+        world = 1 if shard is None else shard.world
+        b, gh, gw = x.shape[0], x.shape[2], x.shape[3]      # the rank's patch rows
+        if (gh * world, gw) != self.grid:
+            raise ValueError(f"input {(gh * world, gw)} patches, position table for "
                              f"{self.grid}: DeiT takes one input size")
-        b, gh, gw = x.shape[0], *self.grid
         x = x.flatten(2).transpose(1, 2)
-        prefix = torch.cat([self.class_token, self.distill_token], 1)
-        x = torch.cat([prefix.expand(b, -1, -1).to(x.dtype), x], 1)
-        x = self.dropout(x + self.pos_embed.to(x.dtype))
+        pos = self.pos_embed.to(x.dtype)
+        first = 0 if shard is None else shard.block(x.shape[1])[0]
+        x = x + pos[:, 2 + first:2 + first + x.shape[1]]
+        if shard is None or shard.rank == 0:
+            prefix = torch.cat([self.class_token, self.distill_token], 1).to(x.dtype)
+            x = torch.cat([prefix.expand(b, -1, -1) + pos[:, :2], x], 1)
+        x = self.dropout(x)
         for layer in self.layers:
             x = layer(x)
-        return [x[:, 2:].transpose(1, 2).reshape(b, -1, gh, gw)]
+        return [x[:, x.shape[1] - gh * gw:].transpose(1, 2).reshape(b, -1, gh, gw)]

@@ -66,7 +66,7 @@ class EfficientAttention(nn.Module):
         kv = self.kv(kv_in).view(b, -1, 2, self.num_heads, hd)
         block = None
         if shard is not None:
-            kv, block = shard.gather_rows(kv, dim=1), (2, *shard.block(n))
+            kv, block = shard.gather_rows(kv, dim=1), (2, *shard.block(n), 0)
         k, v = kv.unbind(2)
         attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
         attn = split_dropout(attn.float().softmax(-1).to(v.dtype), self.dropout.p,
@@ -102,21 +102,21 @@ class MixFFN(nn.Module):
 
 class ConvMixFFN(nn.Module):
     """MixFFN with 1x1 convs (the zoo layout): ``fc1`` -> depthwise 3x3
-    ``pe_conv`` -> GELU (tanh) -> ``fc2``, on the token map."""
+    ``pe_conv`` -> GELU (tanh) -> ``fc2``, on the token map; its dropouts
+    on the map (a ``RowDropout`` over rows)."""
 
     def __init__(self, dim: int, hidden: int, dropout: float = 0.0):
         super().__init__()
         self.fc1 = xavier_uniform_(nn.Conv2d(dim, hidden, 1))
         self.pe_conv = xavier_uniform_(nn.Conv2d(hidden, hidden, 3, 1, 1, groups=hidden))
         self.fc2 = xavier_uniform_(nn.Conv2d(hidden, dim, 1))
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = RowDropout(dropout)
 
     def forward(self, x, hw):
         b, n, c = x.shape
         y = F.gelu(self.pe_conv(self.fc1(x.transpose(1, 2).reshape(b, c, *hw))),
                    approximate="tanh")
-        y = self.fc2(self.dropout(y)).flatten(2).transpose(1, 2)
-        return self.dropout(y)
+        return self.dropout(self.fc2(self.dropout(y))).flatten(2).transpose(1, 2)
 
 
 class MixBlock(nn.Module):

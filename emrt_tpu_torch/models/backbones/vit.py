@@ -6,7 +6,9 @@ of 1 + (H/p)(W/p) rows, pre-norm blocks with fused-qkv attention, and the
 token maps at ``out_indices`` with the cls token dropped (NCHW). Two modes
 of the JAX ViT: ``drop_prefix_after_pos`` (ViT_MLA: the cls token joins
 only the position add and is sliced off before the blocks) and
-``return_cls`` (DPT's readout: also each tap's cls token). The table is
+``return_cls`` (DPT's readout: also each tap's cls token; under a spatial
+shard, where spatial rank 0 alone holds it, every rank gets rank 0's,
+``SpatialShard.lead_tokens``). The table is
 made for one input size (``img_size``) and the forward refuses another;
 a table of another size is re-interpolated on load
 (``utils/checkpoint.py::interp_pos_embed``), as the JAX loader does.
@@ -35,12 +37,21 @@ class Attention(nn.Module):
     replicated. Under a spatial shard (``parallel/spatial.py``) the queries
     are the rank's tokens and the keys and values those of every rank of
     its spatial group (its heads' under tp x sp), gathered after the
-    ``lead`` tokens (the cls token) that spatial rank 0 holds."""
+    ``lead`` tokens (the cls token; DeiT's class and distillation tokens)
+    that spatial rank 0 holds. The last ``tail`` tokens (the Segmenter's
+    class tokens in its mask transformer) are replicated: every rank holds
+    and runs them, queries among its own, and their keys and values come
+    from the rank's own copy after the gathered ones, not gathered (that
+    would count them once a rank). Each rank's loss holds its rows' part of
+    their gradient; DDP's sum over the gradient group makes the whole, and
+    the gather's backward sums over the group the class queries' gradient
+    on every rank's keys and values."""
 
     TP_SPLITS = {"qkv.weight": (0, 3), "qkv.bias": (0, 3), "out.weight": (1, 1)}
     tp = None
     spatial = None
     lead = 0
+    tail = 0
 
     def __init__(self, dim: int, num_heads: int, attn_dropout: float = 0.0,
                  qkv_bias: bool = True):
@@ -70,8 +81,12 @@ class Attention(nn.Module):
         q, k, v = qkv.unbind(2)
         block = None
         if shard is not None:
-            k, v = shard.gather_rows(qkv[:, :, 1:], dim=1, lead=self.lead).unbind(2)
-            block = (2, *shard.block(n, self.lead))
+            rows = n - self.tail
+            kv = shard.gather_rows(qkv[:, :rows, 1:], dim=1, lead=self.lead)
+            if self.tail:
+                kv = torch.cat([kv, qkv[:, rows:, 1:]], 1)
+            k, v = kv.unbind(2)
+            block = (2, *shard.block(n, self.lead, self.tail), self.tail)
         attn = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
         attn = split_dropout(attn.float().softmax(-1).to(v.dtype), self.attn_drop.p,
                              self.training, 1, tp, block)
@@ -165,11 +180,11 @@ class VisionTransformer(nn.Module):
 
     def forward(self, x):
         x = self.embeddings(x)
-        if self.drop_prefix_after_pos:
-            x = x[:, 1:]
+        shard = sharded(self.embeddings)
+        if self.drop_prefix_after_pos and (shard is None or shard.rank == 0):
+            x = x[:, 1:]                    # under a shard only rank 0 holds the cls token
         x = self.dropout(x)
         gh, gw = self.embeddings.grid
-        shard = sharded(self.embeddings)
         gh //= 1 if shard is None else shard.world          # the rank's patch rows
         feats, cls_taps = [], []
         for i, layer in enumerate(self.encoder.layers):
@@ -177,7 +192,8 @@ class VisionTransformer(nn.Module):
             if i in self.out_indices:
                 grid = x[:, -gh * gw:]
                 feats.append(grid.transpose(1, 2).reshape(x.shape[0], -1, gh, gw))
-                cls_taps.append(x[:, 0])
+                if self.return_cls:         # rank 0's cls token on every rank
+                    cls_taps.append(x[:, 0] if shard is None else shard.lead_tokens(x, 1)[:, 0])
         return (feats, cls_taps) if self.return_cls else feats
 
 

@@ -9,19 +9,21 @@ A LayerNorm (eps 1e-6) over the token map's channels, then
 * ``num_conv`` 4 (PUP): four conv3x3 (256, biased) - BN - ReLU with a 2x
   resize after the first three, the 1x1 classifier ``conv_4`` and a last 2x.
 Parameter names are the reference's: ``norm``, ``conv_{i}``,
-``syncbn_fc_{i}``.
+``syncbn_fc_{i}``. Under a spatial shard the resizes give the rank's rows
+(``layers.upsample``).
 """
 from __future__ import annotations
 
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.resize import resize_bilinear
-from ..layers import BatchNorm2d, kaiming_normal_, layer_norm
+from ..layers import BatchNorm2d, kaiming_normal_, layer_norm, sharded, upsample
 
 
 class VisionTransformerUpHead(nn.Module):
     """forward(token map [b, D, h, w]) -> logits."""
+
+    spatial = None
 
     def __init__(self, in_channels: int, num_classes: int, num_conv: int,
                  num_upsample_layer: int, conv3x3_conv1x1: bool = True,
@@ -45,7 +47,7 @@ class VisionTransformerUpHead(nn.Module):
             self.conv_4 = kaiming_normal_(nn.Conv2d(256, num_classes, 1))
 
     def _up(self, x, size):
-        return resize_bilinear(x, size, self.align_corners)
+        return upsample(x, size, sharded(self), self.align_corners)
 
     def forward(self, x):
         x = self.norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)

@@ -21,6 +21,15 @@ gets no lower map): the port does not build it, and a ``.pdparams`` load
 leaves it unread. ``decoder_lr_prefixes``: the Paddle names of the JAX
 package's ``head``, ``refine``, ``process`` and ``layers_rn`` parameters
 (not the readout's).
+
+Under spatial parallelism (``parallel/spatial.py``, ``layers.ShardedWhole``)
+the whole model runs on a rank's image rows: the ViT as SETR's, every rank's
+readout with spatial rank 0's cls token of each tap
+(``SpatialShard.lead_tokens``: its backward sums the ranks' parts into rank
+0's), the ``ConvTranspose2d`` resamples (kernel = stride: local) as they
+are, the 3x3 convs, ``process[3]``'s stride-2 one to stride 32 among them,
+through halos, the x2 resizes (align_corners True) through
+``layers.upsample``, and the head's dropout a ``RowDropout``.
 """
 from __future__ import annotations
 
@@ -28,9 +37,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.resize import resize_bilinear
 from .backbones.vit import ViTEncoder
-from .layers import BatchNorm2d, conv2d, kaiming_normal_, xavier_uniform_
+from .layers import (BatchNorm2d, RowDropout, ShardedWhole, conv2d, kaiming_normal_, sharded,
+                     upsample, xavier_uniform_)
 
 
 class ResidualBlock(nn.Module):
@@ -47,6 +56,8 @@ class ResidualBlock(nn.Module):
 
 
 class FeatureFusionBlock(nn.Module):
+    spatial = None
+
     def __init__(self, channels: int, top: bool = False):
         super().__init__()
         self.resblock1 = None if top else ResidualBlock(channels)
@@ -56,7 +67,7 @@ class FeatureFusionBlock(nn.Module):
     def forward(self, feature, x=None):
         x = feature if x is None else x + self.resblock1(feature)
         x = self.resblock2(x)
-        x = resize_bilinear(x, (2 * x.shape[2], 2 * x.shape[3]), align_corners=True)
+        x = upsample(x, (2 * x.shape[2], 2 * x.shape[3]), sharded(self), True)
         return self.out_conv(x)
 
 
@@ -68,6 +79,8 @@ class _Readout(nn.Module):
 
 
 class DPTHead(nn.Module):
+    spatial = None
+
     def __init__(self, hidden_size: int, num_classes: int, readout: str = "project",
                  hidden_features=(256, 512, 1024, 1024), features: int = 256):
         super().__init__()
@@ -90,7 +103,7 @@ class DPTHead(nn.Module):
         self.refine = nn.ModuleList(FeatureFusionBlock(features, top=i == 3) for i in range(4))
         self.head = nn.Sequential(conv2d(features, features, 3),
                                   BatchNorm2d(features, eps=1e-5), nn.ReLU(),
-                                  nn.Dropout(0.1),
+                                  RowDropout(0.1),
                                   kaiming_normal_(nn.Conv2d(features, num_classes, 1)))
 
     def forward(self, feats, cls_taps):
@@ -107,11 +120,12 @@ class DPTHead(nn.Module):
         for i in range(3, -1, -1):
             y = self.refine[i](processed[i], y)
         y = self.head(y)
-        return resize_bilinear(y, (2 * y.shape[2], 2 * y.shape[3]), align_corners=True)
+        return upsample(y, (2 * y.shape[2], 2 * y.shape[3]), sharded(self), True)
 
 
-class DPTSeg(nn.Module):
+class DPTSeg(ShardedWhole, nn.Module):
     decoder_lr_prefixes = ("head.head", "head.refine", "head.process", "head.layers_rn")
+    spatial_stride = 32                      # process[3]'s stride-2 conv
 
     def __init__(self, num_classes: int, readout: str = "project", img_size=(512, 512),
                  patch_size: int = 16, hidden_size: int = 1024, num_layers: int = 24,
@@ -126,6 +140,13 @@ class DPTSeg(nn.Module):
                                    num_heads=num_heads, mlp_ratio=mlp_ratio,
                                    out_indices=out_indices, return_cls=True)
         self.head = DPTHead(hidden_size, num_classes, readout, hidden_features, features)
+
+    def spatial_deepest(self):
+        """The modules that run at stride 32: ``process[3]`` (its stride-2
+        conv reads one row below at stride 16), ``layers_rn[3]`` and the top
+        fusion block."""
+        head = self.head
+        return [head.process[3], head.layers_rn[3], head.refine[3]]
 
     def forward(self, images):
         with torch.autocast(images.device.type, dtype=torch.bfloat16,

@@ -112,6 +112,30 @@ def sharded(module):
     return module.spatial if module.training else None
 
 
+class ShardedWhole:
+    """A zoo model that a spatial shard splits whole (SETR, Segmenter, DPT,
+    SegFormer: ``parallel/spatial.py``). It has no replicated region: in
+    training mode under a ``SpatialShard`` (``spatial``) every module runs
+    on the rank's image rows (the backbone's attentions over keys and
+    values gathered from the group, the heads' convs through halos, their
+    resizes through ``upsample``, their BatchNorm over the gradient group)
+    and its outputs are the rank's rows. A model with prefix tokens (ViT's
+    cls token, DeiT's two) holds them on spatial rank 0 alone, so that the
+    other ranks' steps leave them without a gradient: DistributedDataParallel
+    then has to look for unused parameters, and only then."""
+
+    spatial = None
+    prefix_tokens = True
+
+    def spatial_region(self):
+        """The modules that run on a rank's rows under a spatial shard: all."""
+        return (self,)
+
+    @property
+    def ddp_find_unused_parameters(self) -> bool:
+        return self.spatial is not None and self.prefix_tokens
+
+
 class HaloConv2d(nn.Conv2d):
     """``nn.Conv2d`` of a spatially sharded region (``shard_model_`` swaps
     the class in place): under its shard it gives the rank's output rows,
@@ -149,24 +173,31 @@ def avg_pool_3x3(x, stride: int, shard=None):
                         3, stride, 1, 1)
 
 
-def upsample(x, size, shard=None):
-    """``resize_bilinear(x, size)`` (align_corners False); over a
-    ``shard``'s rows, ``size`` the rank's and the factor along H an
-    integer, the rank's output rows (``SpatialShard.upsample_rows``)."""
-    if shard is None:
-        return resize_bilinear(x, size)
-    return shard.upsample_rows(x, size)
+def upsample(x, size, shard=None, align_corners: bool = False):
+    """``resize_bilinear(x, size, align_corners)``; over a ``shard``'s rows,
+    ``size`` the rank's and the factor along H an integer, the rank's
+    output rows (``SpatialShard.upsample_rows``: one row of each neighbour,
+    which a resize over the rank's rows alone would clamp to its own edge
+    row). HRNet's fuse and the zoo's heads (SETR's PUP, Naive and MLA
+    heads, DPT's fusion blocks and last x2, SegFormer's stage maps and x4,
+    the Segmenter's masks) resize through here. A resize to the input's
+    own size is the identity, sharded or not."""
+    if shard is None or tuple(int(v) for v in size) == tuple(x.shape[-2:]):
+        return resize_bilinear(x, size, align_corners)
+    return shard.upsample_rows(x, size, align_corners)
 
 
 class RowDropout(nn.Dropout):
     """``nn.Dropout`` that draws its mask through ``split_dropout``, whole
     or, under a spatial shard, the full mask of the image's rows cut to the
     rank's along ``dim`` (2 of NCHW maps; 1 of NHWC maps and of tokens [b,
-    n, c], whose rows ``lead`` tokens precede on spatial rank 0: ViT's cls
-    token): one process and a sharded run draw alike."""
+    n, c], whose rows ``lead`` tokens precede on spatial rank 0, ViT's cls
+    token, and ``tail`` tokens follow on every rank, the Segmenter's class
+    tokens): one process and a sharded run draw alike."""
 
     spatial = None
     lead = 0
+    tail = 0
 
     def __init__(self, p: float = 0.5, dim: int = 2):
         super().__init__(p)
@@ -174,7 +205,8 @@ class RowDropout(nn.Dropout):
 
     def forward(self, x):
         shard = sharded(self)
-        block = None if shard is None else (self.dim, *shard.block(x.shape[self.dim], self.lead))
+        block = None if shard is None else (
+            self.dim, *shard.block(x.shape[self.dim], self.lead, self.tail), self.tail)
         return split_dropout(x, self.p, self.training, self.dim, block=block)
 
 
@@ -257,9 +289,10 @@ def split_dropout(x, p: float, training: bool, dim: int, shard=None, block=None)
     ``dim`` (the FFN's hidden width, the attention's heads) or a spatial
     group along image rows: the keep mask of the full width is drawn, as
     one process draws it, and a rank of a split model (``shard``,
-    ``parallel/tensor.py``) keeps its slice; ``block`` (dim, first, total):
-    a spatial rank's entries ``[first, first + x.shape[dim])`` of the
-    ``total`` (``parallel/spatial.py``, ``SpatialShard.block``). One process
+    ``parallel/tensor.py``) keeps its slice; ``block`` (dim, first, total,
+    tail): a spatial rank's entries ``[first, first + x.shape[dim] - tail)``
+    of the ``total`` and the last ``tail``, which every rank holds
+    (``parallel/spatial.py``, ``SpatialShard.block``). One process
     draws through here too, so a split run consumes the generator alike.
     Kept values are multiplied by 1 / (1 - p) in one kernel each way
     (``native_dropout_backward``, torch's own dropout's: flax's ``Dropout``
@@ -271,12 +304,13 @@ def split_dropout(x, p: float, training: bool, dim: int, shard=None, block=None)
     full = list(x.shape)
     full[dim] *= shard.world if shard is not None else 1
     if block is not None:
-        rows, first, full[rows] = block
+        rows, first, full[rows], tail = block
     mask = torch.empty(full, dtype=torch.bool, device=x.device).bernoulli_(keep)
     if shard is not None:
         mask = mask.narrow(dim, shard.rank * x.shape[dim], x.shape[dim])
     if block is not None:
-        mask = mask.narrow(rows, first, x.shape[rows])
+        own = mask.narrow(rows, first, x.shape[rows] - tail)
+        mask = torch.cat([own, mask.narrow(rows, full[rows] - tail, tail)], rows) if tail else own
     return torch.ops.aten.native_dropout_backward(x, mask, 1.0 / keep)
 
 

@@ -14,6 +14,14 @@ model, SegFormer names no ``decoder_lr_prefixes``: TRAIN.DECODER_LR_COEF
 Parameter names are the reference's (``segformer_key_map``):
 ``backbone.layers.*``, ``decode_head.{convs.{i},fusion_conv}.{conv,bn}``,
 ``decode_head.conv_seg``.
+
+Under spatial parallelism (``parallel/spatial.py``, ``layers.ShardedWhole``)
+the whole model runs on a rank's image rows: the MixViT's attentions over
+the group's keys and values after the ``sr`` convs (k = stride = 8, 4, 2,
+over the rank's rows alone, their count a multiple of k), its patch embeds
+and ``pe_conv`` through halos, the head's resizes (by 2 to 8 to the
+stride-4 map, then 4) through ``layers.upsample`` and its dropout a
+``RowDropout``.
 """
 from __future__ import annotations
 
@@ -21,9 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.resize import resize_bilinear
 from .backbones.mix_transformer import MixVisionTransformerZoo
-from .layers import BatchNorm2d, kaiming_normal_
+from .layers import BatchNorm2d, RowDropout, ShardedWhole, kaiming_normal_, sharded, upsample
 
 
 class ConvModule(nn.Module):
@@ -39,24 +46,29 @@ class ConvModule(nn.Module):
 
 
 class SegformerHead(nn.Module):
+    spatial = None
+
     def __init__(self, in_channels, channels: int = 256, num_classes: int = 60,
                  align_corners: bool = False):
         super().__init__()
         self.align_corners = align_corners
         self.convs = nn.ModuleList(ConvModule(c, channels) for c in in_channels)
         self.fusion_conv = ConvModule(channels * len(in_channels), channels)
-        self.dropout = nn.Dropout(0.1)
+        self.dropout = RowDropout(0.1)
         self.conv_seg = kaiming_normal_(nn.Conv2d(channels, num_classes, 1))
 
     def forward(self, feats):
-        size0 = feats[0].shape[2:]
-        outs = [resize_bilinear(conv(f), size0, self.align_corners)
+        size0, shard = feats[0].shape[2:], sharded(self)
+        outs = [upsample(conv(f), size0, shard, self.align_corners)
                 for conv, f in zip(self.convs, feats)]
         out = self.conv_seg(self.dropout(self.fusion_conv(torch.cat(outs, 1))))
-        return resize_bilinear(out, (4 * size0[0], 4 * size0[1]), self.align_corners)
+        return upsample(out, (4 * size0[0], 4 * size0[1]), shard, self.align_corners)
 
 
-class Segformer(nn.Module):
+class Segformer(ShardedWhole, nn.Module):
+    spatial_stride = 32                      # the last stage
+    prefix_tokens = False
+
     def __init__(self, num_classes: int, embed_dims=(64, 128, 320, 512), depths=(3, 8, 27, 3),
                  num_heads=(1, 2, 5, 8), sr_ratios=(8, 4, 2, 1), mlp_ratio: float = 4.0,
                  head_channels: int = 256, align_corners: bool = False, dropout: float = 0.0,
@@ -66,6 +78,11 @@ class Segformer(nn.Module):
         self.backbone = MixVisionTransformerZoo(embed_dims, depths, num_heads, sr_ratios,
                                                 mlp_ratio, dropout, drop_path)
         self.decode_head = SegformerHead(embed_dims, head_channels, num_classes, align_corners)
+
+    def spatial_deepest(self):
+        """The last stage (its patch embed reads one row above at stride
+        16), at stride 32."""
+        return [self.backbone.layers[-1]]
 
     def forward(self, images):
         with torch.autocast(images.device.type, dtype=torch.bfloat16,

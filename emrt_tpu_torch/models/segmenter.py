@@ -18,16 +18,27 @@ norms, the product's accumulation and the LayerNorms are float32, as in the
 JAX package, where the random-weight classes are near ties that a bf16
 product would flip. ``decoder_lr_prefixes``: ``decoder`` (reference
 segmentor.py:33-44).
+
+Under spatial parallelism (``parallel/spatial.py``, ``layers.ShardedWhole``)
+the whole model runs on a rank's image rows: the encoder's attentions over
+the group's keys and values, the prefix tokens (ViT's cls token, DeiT's
+class and distillation tokens) on spatial rank 0 alone. The mask
+transformer's class tokens run replicated on every rank, after the rank's
+patch tokens, as the EMRT runs its replicated region: its attentions' queries
+are the rank's patches and all the class tokens, their keys and values the
+patches' gathered over the group and then the class tokens' from the rank's
+own copy (``tail``; gathered, they would count once a rank). The product
+``patches @ masks^T`` gives the rank's rows of the masks, which
+``layers.upsample`` resizes to the rank's image rows.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from ..ops.resize import resize_bilinear
 from .backbones.deit import DeiT
-from .backbones.vit import EncoderLayer, ViTEncoder
-from .layers import layer_norm, xavier_uniform_
+from .backbones.vit import Attention, EncoderLayer, ViTEncoder
+from .layers import RowDropout, ShardedWhole, layer_norm, sharded, upsample, xavier_uniform_
 
 
 class MaskTransformer(nn.Module):
@@ -40,6 +51,10 @@ class MaskTransformer(nn.Module):
             torch.empty(1, num_classes, hidden_size), std=0.02, a=-0.04, b=0.04))
         self.layers = nn.ModuleList(EncoderLayer(hidden_size, num_heads, mlp_ratio)
                                     for _ in range(num_layers))
+        # under a spatial shard the class tokens follow every rank's patches
+        for m in self.layers.modules():
+            if isinstance(m, (Attention, RowDropout)):
+                m.tail = num_classes
         self.decoder_norm = layer_norm(hidden_size)
         self.proj_patch = nn.Linear(hidden_size, hidden_size, bias=False)
         self.proj_class = nn.Linear(hidden_size, hidden_size, bias=False)
@@ -72,8 +87,9 @@ class LinearDecoder(nn.Module):
         return self.head(x)
 
 
-class Segmenter(nn.Module):
+class Segmenter(ShardedWhole, nn.Module):
     decoder_lr_prefixes = ("decoder",)
+    spatial_stride = 16                      # the patch
 
     def __init__(self, num_classes: int, decoder_type: str = "MaskTransformer",
                  img_size=(512, 512), patch_size: int = 16, hidden_size: int = 384,
@@ -92,6 +108,11 @@ class Segmenter(nn.Module):
                         else MaskTransformer(hidden_size, num_classes, seg_num_layers,
                                              num_heads, mlp_ratio))
 
+    def spatial_deepest(self):
+        """The modules at the patch grid: the encoder (its patch embed reads
+        no halo) and the decoder (no conv)."""
+        return [self.encoder, self.decoder]
+
     def forward(self, images):
         with torch.autocast(images.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
@@ -99,7 +120,7 @@ class Segmenter(nn.Module):
             b, _, gh, gw = grid.shape
             masks = self.decoder(self.norm(grid.flatten(2).transpose(1, 2)))
             masks = masks.transpose(1, 2).reshape(b, -1, gh, gw)
-            out = resize_bilinear(masks, images.shape[2:], align_corners=False)
+            out = upsample(masks, images.shape[2:], sharded(self))
         return [out.float()]
 
 

@@ -9,6 +9,14 @@ every auxiliary output by AUX_WEIGHT, so the count and order are part of
 the loss. ``decoder_lr_prefixes`` names the parameters that train at
 TRAIN.DECODER_LR_COEF times the learning rate (reference setr.py:121-151):
 the Paddle names of the JAX package's ``decoder`` / ``aux_decoder*``.
+
+Under spatial parallelism (``parallel/spatial.py``, ``layers.ShardedWhole``)
+the whole model runs on a rank's image rows: the ViT's attentions over the
+group's keys and values, the cls token on spatial rank 0 alone (the MLA
+encoder drops it there only), the heads' 3x3 convs through halos and their
+resizes (align_corners False, and the MLA head's x4 with True) through
+``layers.upsample``; at the deepest stride, the patch's 16, a rank needs a
+row for the heads' 3x3 halos.
 """
 from __future__ import annotations
 
@@ -19,10 +27,12 @@ from .backbones.vit import ViTEncoder
 from .backbones.vit_mla import ViT_MLA
 from .decoders.vit_mla_head import VIT_MLA_AUXIHead, VIT_MLAHead
 from .decoders.vit_up_head import VisionTransformerUpHead
+from .layers import ShardedWhole
 
 
-class SETR(nn.Module):
+class SETR(ShardedWhole, nn.Module):
     decoder_lr_prefixes = ("decoder", "aux_decoder")
+    spatial_stride = 16                      # the patch
 
     def __init__(self, num_classes: int, encoder_type: str = "ViT_MLA",
                  decoder_type: str = "VIT_MLAHead", img_size=(512, 512), patch_size: int = 16,
@@ -61,6 +71,12 @@ class SETR(nn.Module):
         self.n_aux = n_aux
         for i in range(n_aux):
             setattr(self, f"aux_decoder{i + 2}", aux[i])
+
+    def spatial_deepest(self):
+        """The modules that run at the patch grid: the encoder (with the MLA
+        convs) and the heads, whose first convs read the grid."""
+        return [self.encoder, self.decoder,
+                *(getattr(self, f"aux_decoder{i + 2}") for i in range(self.n_aux))]
 
     def forward(self, images):
         with torch.autocast(images.device.type, dtype=torch.bfloat16,

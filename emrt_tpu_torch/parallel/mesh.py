@@ -295,9 +295,10 @@ def check_parallel(config, world: int, model=None):
     world / (MODEL x SPATIAL). Given the model, MODEL must also divide every
     dimension it splits (``tensor.check_divides``), as JAX's ``device_put``
     refuses an uneven split, and SPATIAL must fit it
-    (``spatial.check_spatial``: an EMRT, of any backbone, whose deepest
-    sharded rows SPATIAL divides, each rank's at least as many as the
-    deepest halo there; not the zoo)."""
+    (``spatial.check_spatial``: an EMRT of any backbone, a SETR, Segmenter,
+    DPT or SegFormer, whose deepest sharded rows SPATIAL divides, each
+    rank's at least as many as the deepest halo there; not UperNet,
+    Trans2Seg or FCN)."""
     p = config.PARALLEL
     if p.MODEL < 1 or world % p.MODEL:
         raise ValueError(f"PARALLEL.MODEL {p.MODEL} does not divide the {world} "

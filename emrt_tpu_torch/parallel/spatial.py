@@ -10,7 +10,14 @@ map of the sharded region of an EMRT (``models/emrt.py``, every backbone:
 a ResNet, ResNeXt, ResNeSt, HRNet, CSwin, ViT or the SegFormer-B4 MixViT):
 the backbone (HRNet's four branches at strides 4 to 32 and its
 ``input_proj``; CSwin's and ViT's tap norms), the spatial branch, the aux
-FCN head, ``cls_psp`` and ``uphead``. What crosses the region's edges:
+FCN head, ``cls_psp`` and ``uphead``. Of the zoo, SETR (MLA, PUP, Naive),
+the Segmenter (ViT or DeiT; mask transformer or linear decoder), DPT and
+SegFormer have no replicated region: the whole model is sharded
+(``models/layers.ShardedWhole``), their heads' resizes give the rank's rows
+(``layers.upsample``), DPT's readout reads spatial rank 0's cls token on
+every rank (``lead_tokens``) and the mask transformer's class tokens run
+replicated on every rank (the attention's ``tail``); UperNet, Trans2Seg and
+FCN are refused (``check_spatial``). What crosses the region's edges:
 
 * ``SpatialShard.window`` / ``halo``: a conv of kernel k, stride st,
   dilation d and top padding p over local rows divisible by st reads ``p``
@@ -29,11 +36,16 @@ FCN head, ``cls_psp`` and ``uphead``. What crosses the region's edges:
   height: (0, 1) for k 3 and stride 2 over an even height, so it reads no
   row above and one below, on every rank (a rank's own "same" padding
   would read a zero row where its neighbour's first row belongs);
-* ``SpatialShard.upsample_rows``: the rank's rows of an align_corners=False
-  bilinear upsample by an integer factor of a sharded map (HRNet's fuse
-  and its stages' concat, x2 to x8), each output row from the source rows
-  ``floor((y + 0.5) / f - 0.5)`` and the next of the global frame, clipped
-  at the image's edges: one halo row each side;
+* ``SpatialShard.upsample_rows``: the rank's rows of a bilinear upsample
+  by an integer factor of a sharded map (HRNet's fuse and its stages'
+  concat, x2 to x8; the zoo heads' x2 to x16), each output row from the
+  source rows ``floor((y + 0.5) / f - 0.5)`` (align_corners False) or
+  ``floor(y (in - 1) / (out - 1))`` (True: the MLA head's x4, DPT's x2s)
+  and the next of the global frame, clipped at the image's edges: one halo
+  row each side;
+* ``SpatialShard.lead_tokens``: spatial rank 0's leading tokens on every
+  rank (DPT's readout of each tap's cls token); its backward sums the
+  ranks' gradients into rank 0's tokens;
 * ``SpatialShard.global_mean``: the mean over the whole image of a sharded
   map, replicated on every rank (ResNeSt's split-attention gate): its
   forward all-reduces the ranks' partial sums, its backward the incoming
@@ -44,7 +56,9 @@ FCN head, ``cls_psp`` and ``uphead``. What crosses the region's edges:
   encoder-decoder with K1-K3 at the full token count, EFP), and the keys
   and values of every attention of a transformer backbone, whose queries
   are the rank's own tokens: each rank projects its own rows' keys and
-  values and the group gathers them (CSwin's stripes, with the zero rows
+  values and the group gathers them (the Segmenter's class tokens, which
+  every rank holds after its patches, are appended from the rank's own copy
+  after the gather; CSwin's stripes, with the zero rows
   that pad the map to the stripe size after the image's last row, and
   its LePE conv over the gathered stripes; the MixViT's keys and values
   after the spatial-reduction conv, which sees only the rank's rows; ViT's
@@ -170,6 +184,30 @@ class _GatherRows(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.start, ctx.length)
 
 
+class _LeadTokens(torch.autograd.Function):
+    """Rank 0's first ``lead`` tokens along dim 1, on every rank; backward:
+    the gradient summed over the group into rank 0's tokens (each rank's
+    loss holds its rows' part), zeros on the other ranks."""
+
+    @staticmethod
+    def forward(ctx, x, shard, lead):
+        ctx.shard, ctx.shape, ctx.lead = shard, x.shape, lead
+        t = (_wide(x[:, :lead]).contiguous() if shard.rank == 0
+             else x.new_zeros((x.shape[0], lead, *x.shape[2:]),
+                              dtype=torch.promote_types(x.dtype, torch.float32)))
+        dist.all_reduce(t, group=shard.group)        # rank 0's tokens, + 0 from the others
+        return t.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = _wide(grad)
+        dist.all_reduce(g, group=ctx.shard.group)
+        out = g.new_zeros(ctx.shape)
+        if ctx.shard.rank == 0:
+            out[:, :ctx.lead] = g
+        return out.to(grad.dtype), None, None
+
+
 class _GlobalMean(torch.autograd.Function):
     """The mean over the image's H x W of every rank's rows, replicated;
     backward: the gradients of the ranks summed, spread evenly over the
@@ -204,12 +242,15 @@ class SpatialShard:
         per = n // self.world
         return slice(self.rank * per, (self.rank + 1) * per)
 
-    def block(self, n: int, lead: int = 0) -> tuple[int, int]:
+    def block(self, n: int, lead: int = 0, tail: int = 0) -> tuple[int, int]:
         """(first, total) of the rank's ``n`` entries along a dim that the
         group splits into equal blocks of rows or tokens, after ``lead``
-        entries that rank 0 alone holds (and counts in its ``n``)."""
-        per = n - (lead if self.rank == 0 else 0)
-        return (0 if self.rank == 0 else lead + self.rank * per), lead + self.world * per
+        entries that rank 0 alone holds (and counts in its ``n``) and before
+        ``tail`` entries that every rank holds (and counts; ``total``
+        counts them once: the Segmenter's class tokens)."""
+        per = n - tail - (lead if self.rank == 0 else 0)
+        return ((0 if self.rank == 0 else lead + self.rank * per),
+                lead + self.world * per + tail)
 
     def _halos(self, x, top: int, bottom: int, mode: str):
         if max(top, bottom) > x.shape[2]:
@@ -295,31 +336,48 @@ class SpatialShard:
         return F.interpolate(rows, size=(rows.shape[2], out_w), mode="bilinear",
                              align_corners=True)
 
-    def upsample_rows(self, x, size) -> torch.Tensor:
-        """This rank's rows of ``resize_bilinear(x, size)`` (align_corners
-        False) of the sharded map ``x`` upsampled by an integer factor f
-        along H, ``size`` the rank's (rows, columns) of the output. Output
-        row y (global) interpolates source rows floor(src) and the next,
-        src = max((y + 0.5) / f - 0.5, 0), the next clipped at the image's
-        last row (torch's and the JAX package's rule): one row of each
-        neighbour (``halo``, the edge row at the image's edges). The
-        columns then go through ``F.interpolate`` at the rows' own height
-        (an identity along H)."""
+    def upsample_rows(self, x, size, align_corners: bool = False) -> torch.Tensor:
+        """This rank's rows of ``resize_bilinear(x, size, align_corners)``
+        of the sharded map ``x`` upsampled by an integer factor f along H,
+        ``size`` the rank's (rows, columns) of the output. Output row y
+        (global) interpolates source rows floor(src) and the next, the next
+        clipped at the image's last row (torch's and the JAX package's
+        rule): src = max((y + 0.5) / f - 0.5, 0) with align_corners False,
+        y (in - 1) / (out - 1) of the global frame with True (then the
+        first row of rank s reads up to one row of the rank above, less than
+        s / S of a row, and its last row at most the first row of the rank
+        below: with in = 32 and out = 128 over two ranks, row 63 reads rows
+        15 and 16, 0.378 on 16). Either way one row of each neighbour
+        (``halo``, the edge row at the image's edges). The columns then go
+        through ``F.interpolate`` at the rows' own height (an identity along
+        H)."""
         rows, out_h, out_w = x.shape[2], int(size[0]), int(size[1])
         if out_h % rows:
             raise ValueError(f"upsample_rows: {out_h} rows are not an integer factor of {rows}")
         factor = out_h // rows
-        first = self.rank * rows
+        first, last = self.rank * rows, rows * self.world - 1
         y = torch.arange(self.rank * out_h, (self.rank + 1) * out_h, device=x.device,
                          dtype=torch.float32)
-        src = ((y + 0.5) / factor - 0.5).clamp(min=0.0)
-        lo = src.floor().long()
-        hi = (lo + 1).clamp(max=rows * self.world - 1)
+        if align_corners:
+            src = y * (last / (out_h * self.world - 1))
+        else:
+            src = ((y + 0.5) / factor - 0.5).clamp(min=0.0)
+        lo = src.floor().long().clamp(max=last)
+        hi = (lo + 1).clamp(max=last)
         w_hi = (src - lo).view(1, 1, -1, 1).to(torch.promote_types(x.dtype, torch.float32))
         padded = self.halo(x, 1, 1, mode="edge")            # global row r at r - first + 1
         out = (padded[:, :, lo - first + 1] * (1 - w_hi)
                + padded[:, :, hi - first + 1] * w_hi).to(x.dtype)
-        return F.interpolate(out, size=(out_h, out_w), mode="bilinear", align_corners=False)
+        return F.interpolate(out, size=(out_h, out_w), mode="bilinear",
+                             align_corners=align_corners)
+
+    def lead_tokens(self, x, lead: int) -> torch.Tensor:
+        """The first ``lead`` tokens [b, lead, c] of rank 0's tokens ``x``
+        [b, n, c] on every rank of the group (ViT's cls token, which rank 0
+        alone holds, for DPT's readout); backward: the ranks' gradients
+        summed into rank 0's tokens, zeros on the others (a collective of
+        the group)."""
+        return _LeadTokens.apply(x, self, lead)
 
     def global_mean(self, x) -> torch.Tensor:
         """The [n, c] mean over all rows and columns of the image of the
@@ -347,18 +405,21 @@ def _deepest_halo(model) -> tuple[int, int]:
 
 def check_spatial(model, spatial: int, crop_h: int):
     """Raise where ``spatial`` ranks cannot split ``model``'s rows at a crop
-    of ``crop_h`` rows: a model other than an EMRT (``spatial_stride``
-    None: the zoo), rows at the sharded region's deepest stride (a ResNet's
-    output stride, ViT's patch 16, 32 for the others: then also the
-    MixViT's spatial-reduction convs, k = stride = 8, 4, 2 at strides 4 to
-    16, see only the rank's rows) that ``spatial`` does not divide, or a
-    conv's halo there deeper than a rank's rows (the dilation-4 convs of a
-    ResNet at output stride 8 read 4 rows each side)."""
+    of ``crop_h`` rows: a model that names no ``spatial_stride`` (UperNet,
+    Trans2Seg, FCN), rows at the sharded region's deepest stride (a
+    ResNet's output stride; the patch's 16 for an EMRT-ViT, SETR and the
+    Segmenter; 32 for the other EMRTs, DPT's ``process[3]`` and SegFormer:
+    then also the MixViT's spatial-reduction convs, k = stride = 8, 4, 2 at
+    strides 4 to 16, see only the rank's rows) that ``spatial`` does not
+    divide (DPT's 480^2 yamls: 15 rows at stride 32), or a conv's halo
+    there deeper than a rank's rows (the dilation-4 convs of a ResNet at
+    output stride 8 read 4 rows each side)."""
     stride = getattr(model, "spatial_stride", None)
     if stride is None:
         raise NotImplementedError(
-            f"PARALLEL.SPATIAL {spatial}: spatial sharding is ported for the EMRTs; not for "
-            f"{type(model).__name__} (the zoo: ROADMAP.md queue 1, item 5)")
+            f"PARALLEL.SPATIAL {spatial}: spatial sharding is ported for the EMRTs, SETR, "
+            f"Segmenter, DPT and SegFormer; not for {type(model).__name__} (UperNet, Trans2Seg "
+            f"and FCN: ROADMAP.md queue 1, item 5b)")
     deepest = crop_h // stride
     if crop_h % stride or deepest % spatial:
         raise ValueError(f"PARALLEL.SPATIAL {spatial} does not divide the {crop_h / stride:g} "
@@ -371,15 +432,19 @@ def check_spatial(model, spatial: int, crop_h: int):
 
 
 def shard_model_(model, rank: int, world: int, group):
-    """Give the sharded region of ``model`` (an EMRT) rank ``rank``'s
+    """Give the sharded region of ``model`` (an EMRT; the whole of a SETR,
+    Segmenter, DPT or SegFormer, ``layers.ShardedWhole``) rank ``rank``'s
     ``SpatialShard`` of ``world`` in place: its convs halo exchange
     (``layers.HaloConv2d``; a ``Conv2dSame`` by its global padding; not
-    CSwin's LePE conv, which runs over gathered stripes), its pools and
-    resizes too, its transformer blocks' attentions take the rank's queries
-    over every rank's keys and values (CSwin, ViT, the MixViT), its dropout
-    keeps the rank's rows of the full mask, its BatchNorm over maps takes
-    statistics over the gradient group (data x spatial; ``sync_bn``), and the model
-    gathers and cuts rows at the region's edges. A BatchNorm over vectors
+    CSwin's LePE conv, which runs over gathered stripes; DPT's
+    ``ConvTranspose2d`` resamples, kernel = stride, stay local), its pools
+    and resizes too (the zoo heads' through ``layers.upsample``), its
+    transformer blocks' attentions take the rank's queries over every
+    rank's keys and values (CSwin, ViT, DeiT, the MixViT; the mask
+    transformer's class tokens replicated), its dropout keeps the rank's
+    rows of the full mask, its BatchNorm over maps takes statistics over
+    the gradient group (data x spatial; ``sync_bn``), and an EMRT gathers
+    and cuts rows at the region's edges. A BatchNorm over vectors
     (ResNeSt's gate after the global mean) holds the same values on every
     rank of the group and stays on the data group. Parameters, buffers and
     keys stay as they are. Returns ``model``."""

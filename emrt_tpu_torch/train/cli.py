@@ -36,14 +36,17 @@ Tensor parallelism: ``torchrun --nproc_per_node 4 -m emrt_tpu_torch.train
 --config <yaml> PARALLEL.MODEL 2`` (dp2 x tp2).
 
 With PARALLEL.SPATIAL = S > 1 (an EMRT with any backbone: ResNet,
-ResNeXt, ResNeSt, HRNet, CSwin, ViT or SegFormer-B4; not the zoo;
+ResNeXt, ResNeSt, HRNet, CSwin, ViT or SegFormer-B4; of the zoo SETR,
+Segmenter, DPT and SegFormer, sharded whole; not UperNet, Trans2Seg or FCN;
 ``parallel.check_parallel``) the ranks are laid out as DATA x MODEL x S, as
 the JAX package places the batch on ``spatial_batch_sharding``: the S ranks
 of a spatial group load their data rank's rows and each trains on its block
 of H / S image and label rows (``parallel.spatial.shard_model_``: halo
 exchanges in the sharded region, the keys and values of a transformer
 backbone's attentions gathered for the rank's queries, ViT's cls token on
-spatial rank 0 alone, the maps gathered for the deformable transformer).
+spatial rank 0 alone, the maps gathered for the deformable transformer;
+the zoo heads' resizes over the rank's rows with a halo row, DPT's readout
+of rank 0's cls token, the mask transformer's class tokens replicated).
 DDP, the sharded region's
 BatchNorm and the losses' count (OHEM's k-th probability too) run over the
 gradient group (data x spatial of equal model rank), the logged loss is

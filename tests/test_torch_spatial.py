@@ -26,10 +26,13 @@ are in ``test_torch_spatial_ranks.py``):
 - the grid: rank r = (d * MODEL + m) * SPATIAL + s and its groups;
 - ``check_parallel`` accepts SPATIAL 2 for every EMRT (ResNet, ResNeXt,
   ResNeSt, HRNet, CSwin, ViT, SegFormer-B4) at a 256 crop, with MODEL 2 on
-  four ranks and with OHEM, and refuses it for the zoo, where it does not
-  divide the rows at the deepest stride (ViT's 16 rows at stride 16 by 3;
-  the others' 8 rows at stride 32 by 16), and where a dilated conv's halo
-  is deeper than a rank's rows.
+  four ranks and with OHEM, and for the zoo's SETR (MLA, PUP, Naive; also
+  MODEL 2 x SPATIAL 2), Segmenter (ViT-L, DeiT-B), DPT and SegFormer-B5
+  at their yamls' crops; it refuses it for UperNet and Trans2Seg (the next
+  ROADMAP item), where it does not divide the rows at the deepest stride
+  (ViT's 16 rows at stride 16 by 3; the others' 8 rows at stride 32 by 16;
+  DPT's 15 at its 480 crop by 2), and where a dilated conv's halo is
+  deeper than a rank's rows.
 
 The train step under dp x sp is in ``test_torch_spatial_train.py``.
 """
@@ -60,7 +63,7 @@ TOL = 1e-6
 BIAS_TOL = 3e-6
 CIN_SAME = 3
 CONV_NAMES = {name for name, _ in CONVS} | {SAME}
-ZOO_YAML = FLAGSHIP.parents[1] / "setr" / "SETR_PUP_Large_256x256_160k_potsdam_bs_8.yaml"
+CONFIGS = FLAGSHIP.parents[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,6 +186,23 @@ def test_check_parallel_accepts_spatial_for_a_transformer_emrt(spatial, model, e
     check_parallel(cfg, 2 * spatial * model, _meta_model(encoder, 32, name))
 
 
+@pytest.mark.parametrize("spatial, model, yaml", [
+    (2, 1, "setr/SETR_PUP_Large_256x256_160k_potsdam_bs_8.yaml"),
+    (2, 1, "setr/SETR_MLA_Large_512x512_160k_ade20k.yaml"),
+    (4, 1, "setr/SETR_Naive_Large_768x768_80k_cityscapes.yaml"),
+    (2, 2, "setr/SETR_PUP_Large_768x768_80k_cityscapes.yaml"),
+    (2, 1, "segmenter/segmenter_Large_512x512_160k_ade20k_bs_16.yaml"),
+    (2, 1, "segmenter/segmenter_base_distilled_512x512_160k_ade20k_bs_16.yaml"),
+    (2, 1, "dpt/DPT_Large_512x512_160k_potsdam_bs_8.yaml"),
+    (2, 1, "segformer/segformer_b5_512x512_160k_ade20k.yaml")],
+    ids=["setr-pup", "setr-mla", "setr-naive-s4", "setr-tp-x-sp", "segmenter-vit",
+         "segmenter-deit", "dpt", "segformer"])
+def test_check_parallel_accepts_spatial_for_a_global_attention_zoo_model(spatial, model, yaml):
+    cfg, meta = _meta_zoo_model(yaml)
+    cfg.PARALLEL.SPATIAL, cfg.PARALLEL.MODEL = spatial, model
+    check_parallel(cfg, 2 * spatial * model, meta)
+
+
 @pytest.mark.parametrize("overrides, world, model, exc, match", [
     ({"SPATIAL": 16}, 16, ("cswintransformer", 32, "EMRT_CSwin"), ValueError,
      "SPATIAL 16 does not divide the 8 rows of a 256-row crop at output stride 32"),
@@ -190,8 +210,12 @@ def test_check_parallel_accepts_spatial_for_a_transformer_emrt(spatial, model, e
      "SPATIAL 3 does not divide the 16 rows of a 256-row crop at output stride 16"),
     ({"SPATIAL": 16}, 16, ("segformer_b4", 32, None), ValueError,
      "SPATIAL 16 does not divide the 8 rows of a 256-row crop at output stride 32"),
-    ({"SPATIAL": 2}, 2, "zoo", NotImplementedError,
-     "not for SETR .*ROADMAP.md queue 1, item 5"),
+    ({"SPATIAL": 2}, 2, "upernet_swin/upernet_swin_tiny_patch4_windown7_512x512_160k_potsdam.yaml",
+     NotImplementedError, "not for UperNet .*ROADMAP.md queue 1, item 5b"),
+    ({"SPATIAL": 2}, 2, "trans2seg/Trans2Seg_medium_256x256_160k_potsdam.yaml",
+     NotImplementedError, "not for Trans2Seg .*ROADMAP.md queue 1, item 5b"),
+    ({"SPATIAL": 2}, 2, "dpt/DPT_Large_480x480_160k_ade20k.yaml", ValueError,
+     "SPATIAL 2 does not divide the 15 rows of a 480-row crop at output stride 32"),
     ({"SPATIAL": 16}, 16, ("resnet50", 32, None), ValueError,
      "SPATIAL 16 does not divide the 8 rows of a 256-row crop at output stride 32"),
     ({"SPATIAL": 3}, 3, ("resnet50", 16, None), ValueError, "does not divide the 16 rows"),
@@ -200,21 +224,26 @@ def test_check_parallel_accepts_spatial_for_a_transformer_emrt(spatial, model, e
     ({"SPATIAL": 2}, 3, None, ValueError, "PARALLEL.SPATIAL 2 x PARALLEL.MODEL 1 does not "
                                           "divide the 3"),
     ({"SPATIAL": 2, "DATA": 2}, 2, None, ValueError, "use -1 or 1"),
-], ids=["cswin", "vit", "segformer_b4", "zoo", "os32-rows", "os16-rows", "os8-halo", "world",
-        "data"])
+], ids=["cswin", "vit", "segformer_b4", "zoo", "trans2seg", "dpt-480", "os32-rows",
+        "os16-rows", "os8-halo", "world", "data"])
 def test_check_parallel_refuses_what_spatial_cannot_split(overrides, world, model, exc,
                                                           match):
-    if model == "zoo":
-        model = _meta_zoo_model()
+    cfg = _config(**overrides)
+    if isinstance(model, str):          # a zoo yaml, at its own crop
+        cfg, model = _meta_zoo_model(model)
+        for key, value in overrides.items():
+            setattr(cfg.PARALLEL, key, value)
     elif model:
         model = _meta_model(*model)
     with pytest.raises(exc, match=match):
-        check_parallel(_config(**overrides), world, model)
+        check_parallel(cfg, world, model)
 
 
-def _meta_zoo_model():
-    cfg = get_config(str(ZOO_YAML))
-    return get_model(cfg, device="meta")
+def _meta_zoo_model(yaml):
+    """(the config, the model built on the meta device) of a zoo yaml."""
+    cfg = get_config(str(CONFIGS / yaml))
+    with torch.device("meta"):
+        return cfg, get_model(cfg, device="meta")
 
 
 def test_check_parallel_accepts_ohem_under_spatial():

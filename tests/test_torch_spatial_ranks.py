@@ -1,6 +1,7 @@
 """The rank-side halves of the spatial-parallel tests (``test_torch_spatial.py``,
 ``test_torch_spatial_train.py``, ``test_torch_tpsp_train.py``,
-``test_torch_spatial_backbones.py``).
+``test_torch_spatial_backbones.py``, ``test_torch_spatial_transformers.py``,
+``test_torch_spatial_zoo.py``).
 
 Each function runs on every rank of ``emrt_tpu_torch.parallel.launch.run_ranks``
 (or in one process, where the world is 1): a spawned child that imports this
@@ -44,12 +45,18 @@ GLOBAL_MEAN = "global mean + bn"
 TOKEN_GATHER, ROW_DROPOUT = "gather, lead 1", "row dropout, lead 1"
 OPS = (tuple(name for name, _ in CONVS) + ("max pool", "2x resize", "row resize", SAME)
        + tuple(UPSAMPLES) + ("avg pool", GLOBAL_MEAN, TOKEN_GATHER, ROW_DROPOUT))
+# the zoo's (``test_torch_spatial_zoo.py``): the heads' align_corners=True
+# upsamples (the MLA head's x4, DPT's x2s) and DPT's readout of spatial rank
+# 0's lead token on every rank (over 1 + 32 rows)
+UPSAMPLES_AC = {"upsample x2 ac": 2, "upsample x4 ac": 4}
+LEAD_TOKENS = "lead tokens"
+ZOO_OPS = (*UPSAMPLES_AC, LEAD_TOKENS)
 CIN, COUT = 3, 4
 # the ops whose input is replicated (each rank holds the whole map) and
 # those whose output is (each rank's loss then takes a share of its
 # gradient, ``grad_share``)
-REPLICATED_IN, REPLICATED_OUT = ("row resize",), (GLOBAL_MEAN, TOKEN_GATHER)
-LEADS = {TOKEN_GATHER: 1, ROW_DROPOUT: 1}
+REPLICATED_IN, REPLICATED_OUT = ("row resize",), (GLOBAL_MEAN, TOKEN_GATHER, LEAD_TOKENS)
+LEADS = {TOKEN_GATHER: 1, ROW_DROPOUT: 1, LEAD_TOKENS: 1}
 
 
 def grad_share(rank: int, world: int) -> float:
@@ -82,10 +89,13 @@ def _op(name, shard=None):
         return lambda x, w: (max_pool_3x3s2(x, shard) * w[0].view(1, -1, 1, 1), w)
     if name == "2x resize":
         return lambda x, w: (UpHead._up(x * w[0].view(1, -1, 1, 1), shard), w)
-    if name in UPSAMPLES:
-        f = UPSAMPLES[name]
+    if name in UPSAMPLES or name in UPSAMPLES_AC:
+        f, ac = UPSAMPLES.get(name) or UPSAMPLES_AC[name], name in UPSAMPLES_AC
         return lambda x, w: (upsample(x * w[0].view(1, -1, 1, 1),
-                                      (f * x.shape[2], f * x.shape[3]), shard), w)
+                                      (f * x.shape[2], f * x.shape[3]), shard, ac), w)
+    if name == LEAD_TOKENS:      # the rows as tokens [b, rows, c, w]
+        return lambda x, w: ((x[:, :, :1] if shard is None else shard.lead_tokens(
+            x.transpose(1, 2), 1).transpose(1, 2)) * w[0].view(1, -1, 1, 1), w)
     if name == "avg pool":
         return lambda x, w: (avg_pool_3x3(x * w[0].view(1, -1, 1, 1), 2, shard), w)
     if name == TOKEN_GATHER:
@@ -129,8 +139,8 @@ def op_inputs(name, seed=0):
     else:
         weights = [rng.normal(size=(CIN,)) + 2.0]
     shape = {"row resize": (2, CIN, 3, 3), GLOBAL_MEAN: (4, CIN, 32, 12),
-             **{u: (2, CIN, 8, 6) for u in UPSAMPLES}}.get(name, (2, CIN, 32 + LEADS.get(name, 0),
-                                                                  12))
+             **{u: (2, CIN, 8, 6) for u in (*UPSAMPLES, *UPSAMPLES_AC)}}.get(
+                 name, (2, CIN, 32 + LEADS.get(name, 0), 12))
     x = rng.normal(size=shape)
     f32 = lambda a: a.astype(np.float32)  # noqa: E731
     with torch.no_grad():
@@ -226,11 +236,14 @@ CROP = 64
 def _grid_model(kind, state_path, dropout, dtype):
     """The tiny EMRT-R50 from the bridged weights at ``state_path`` (kind
     "r50"), or a BACKBONES or TRANSFORMERS EMRT with 1 encoder and 1 decoder
-    layer (HRNet built as ``NARROW_HRNET``, "mit" as ``NARROW_MIT``) from
-    the weights at ``state_path``, or from torch's seed 0 where it is None;
-    with dropout ``dropout`` (0: DropPath off too)."""
+    layer (HRNet built as ``NARROW_HRNET``, "mit" as ``NARROW_MIT``), or a
+    zoo model (kind (its class under ``emrt_tpu_torch.models``, its
+    arguments): ``test_torch_zoo.FAMILIES``' narrow ones) from the weights
+    at ``state_path``, or from torch's seed 0 where it is None; with dropout
+    ``dropout`` (0: DropPath off too)."""
     import contextlib
     import functools
+    import importlib
     from unittest import mock
 
     from emrt_tpu_torch.models import emrt
@@ -239,15 +252,22 @@ def _grid_model(kind, state_path, dropout, dtype):
     if kind == "r50":
         return _tiny_emrt(state_path, dropout, dtype)
     torch.manual_seed(0)
-    backbone, knobs = TRANSFORMERS.get(kind, (BACKBONES.get(kind), {}))
+    backbone, knobs = TRANSFORMERS.get(kind, (BACKBONES.get(kind), {})) if isinstance(
+        kind, str) else (None, {})
     with contextlib.ExitStack() as patches:
         patches.enter_context(mock.patch.object(
             emrt, "HRNet", functools.partial(emrt.HRNet, *NARROW_HRNET)))
         if kind == "mit":
             patches.enter_context(mock.patch.dict(mix_transformer._MIT_CONFIGS,
                                                   {"b4": NARROW_MIT}))
-        model = emrt.EMRT(num_classes=NUM_CLASSES, num_encoder_layers=1, num_decoder_layers=1,
-                          backbone=backbone, img_size=(CROP, CROP), **knobs).to(dtype)
+        if isinstance(kind, str):
+            model = emrt.EMRT(num_classes=NUM_CLASSES, num_encoder_layers=1,
+                              num_decoder_layers=1, backbone=backbone, img_size=(CROP, CROP),
+                              **knobs).to(dtype)
+        else:
+            module, name = kind[0].rsplit(".", 1)
+            model = getattr(importlib.import_module(f"emrt_tpu_torch.models.{module}"), name)(
+                num_classes=NUM_CLASSES, **kind[1]).to(dtype)
     if state_path is not None:
         state = {k: v.to(dtype) if v.is_floating_point() else v
                  for k, v in torch.load(state_path, weights_only=True).items()}
@@ -290,7 +310,15 @@ def grid_step_rank(rank, world, t, s, kind, state_path, image, label, dropout, f
     logits gathered, the whole labels; the gather's sum then counts each
     gradient S times, and DDP's mean over the S ranks divides it out), and
     "replicated bn over spatial", the replicated region's BatchNorm over the
-    gradient group (its sums and its count n both S times larger)."""
+    gradient group (its sums and its count n both S times larger). Three
+    of a zoo model: "cls on every rank", DPT's readout taking each rank's
+    first token (``lead_tokens`` as ``x[:, :lead]``: a patch token off
+    spatial rank 0); "class tokens gathered", the mask transformer's
+    attentions gathering the class tokens' keys and values with the
+    patches' (no ``tail``: each class then counts once a rank); "resize
+    over own rows", the heads' resizes over the rank's rows alone
+    (``upsample_rows`` as a plain ``resize_bilinear``, which clamps at the
+    rank's edges)."""
     import torch.distributed as dist
     from torch.nn.parallel import DistributedDataParallel
 
@@ -336,7 +364,7 @@ def grid_step_rank(rank, world, t, s, kind, state_path, image, label, dropout, f
         if fault == "full loss":
             trained = _GatheredOutputs(trained, model.spatial)
             loss_fn = (lambda fn, whole: lambda out, _: fn(out, whole))(loss_fn, batch["label"])
-        sound = _GatherRows.backward
+        sound, zoo = _GatherRows.backward, _zoo_fault(model, fault)
         if fault in ("gather without sum", "kv gather without sum"):
             def unsummed(ctx, g):
                 if fault == "gather without sum" or ctx.dim == 1:
@@ -353,6 +381,7 @@ def grid_step_rank(rank, world, t, s, kind, state_path, image, label, dropout, f
             loss = step(spatial_rows(model, batch))
         finally:
             _GatherRows.backward = sound
+            zoo.close()
             for h in hooks:
                 h.remove()
         loss = all_reduce_gradient(loss.clone()) / gradient_world()
@@ -373,6 +402,30 @@ def grid_step_rank(rank, world, t, s, kind, state_path, image, label, dropout, f
                 "partial": sorted(partial_of(model)),
                 "replicated": {k: p.detach().numpy().copy()
                                for k, p in model.named_parameters() if k not in specs}}
+
+
+def _zoo_fault(model, fault):
+    """Plant ``grid_step_rank``'s zoo ``fault`` in ``model``; returns the
+    patches to close after the step."""
+    import contextlib
+    from unittest import mock
+
+    from emrt_tpu_torch.models.backbones.vit import Attention
+    from emrt_tpu_torch.ops.resize import resize_bilinear
+    from emrt_tpu_torch.parallel.spatial import SpatialShard
+    patches = contextlib.ExitStack()
+    if fault == "cls on every rank":
+        patches.enter_context(mock.patch.object(SpatialShard, "lead_tokens",
+                                                lambda self, x, lead: x[:, :lead]))
+    elif fault == "resize over own rows":
+        patches.enter_context(mock.patch.object(
+            SpatialShard, "upsample_rows",
+            lambda self, x, size, align_corners=False: resize_bilinear(x, size, align_corners)))
+    elif fault == "class tokens gathered":
+        for m in model.decoder.layers.modules():
+            if isinstance(m, Attention):
+                m.tail = 0
+    return patches
 
 
 def slim_step_rank(rank, world, whole_state, *args):

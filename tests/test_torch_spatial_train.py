@@ -97,8 +97,8 @@ def _failures(got, want, dtype) -> list:
     """The checks of the step ``got`` against ``want`` that it fails."""
     flat = lambda r: np.concatenate([v.ravel() for v in r["grads"].values()])  # noqa: E731
     g, w = flat(got), flat(want)
-    stats = max(float(np.abs(got["state"][k] - v).max() / np.abs(v).max())
-                for k, v in want["state"].items() if "running" in k)
+    stats = max((float(np.abs(got["state"][k] - v).max() / np.abs(v).max())
+                 for k, v in want["state"].items() if "running" in k), default=0.0)
     checks = ((abs(got["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"]),
                f"loss {got['loss']} vs {want['loss']}"),
               (abs(got["norm"] - want["norm"]) <= NORM_RTOL * want["norm"],
