@@ -191,8 +191,8 @@ activations; a memory figure: the ranks share one card). Phases 1 and 3a
 also hold the kernels at ViT-L's calls at 768^2 (three 48^2 levels, Lq
 6,912 and 110), and ``time_fwd`` / ``time_bwd`` time them. Phase 10 (b)
 and (e)'s rank steps run in one start of the two ranks, and (e)'s one
-process after them; phase 11 (a) and (d)'s alike (``sharded_steps``): a
-start of the ranks costs 20-25 s. The whole script runs phase 11 (a) and
+process after them (``sharded_steps``): a start of the ranks costs 15-25
+s. The whole script runs phase 11 (a) and
 (b) at a cut depth (DEPTH_CUT: CSwin's stage 3 at 2 of its 21 blocks,
 ViT-L at 8 of its 24 layers), to make room for phase 12 in its time
 limit; ``--transformer-sp`` runs them at full depth.
@@ -212,13 +212,38 @@ dp1 x tp2 x sp2 step with phase 10 (a)'s; (c) no launch of K1 or the
 backward in any rank's step; (d) phase 9 (d)'s bf16 step of SETR-PUP-L at
 2 x 768^2 (the cityscapes yaml's crop), one process against each dp1 x
 sp2 rank (ms, peak memory, the activations of ``encoder``, ``decoder``
-and the ``aux_decoder*`` heads).
+and the ``aux_decoder*`` heads). The whole script runs phase 12 (a) and
+(b) at a cut depth (ZOO_DEPTH_CUT: the ViT-L encoders of SETR-PUP-L,
+SETR-MLA-L, DPT-L and the Segmenter at 8 of their 24 layers, DeiT-B at 4
+of 12, SegFormer-B5's third stage at 8 of 40 blocks), to make room for
+phase 13 in its time limit; (d) runs at full depth.
+Phase 13 drives spatial parallelism of the rest of the zoo at full width
+and depth with seeded weights: UperNet with a Swin, CSwin or Focal
+backbone (sharded whole: the window, stripe and focal attentions of the
+rank's rows over the map gathered from the group, the UperHead's pyramid
+pooling over its gathered top map on every rank), Trans2Seg (the ResNet
+and the CNN head on the rank's rows, the transformer whole on every rank
+over the gathered c4) and FCN. (a) One float32 dp1 x sp2 step of phase 7's
+8 rows at 256^2 as phase 12 (a)'s, of UperNet-Swin-T, UperNet-CSwin-T and
+UperNet-Focal-B from their Potsdam yamls (512^2, built at a 256 crop),
+Trans2Seg-medium (Trans2Seg_medium_256x256_160k_potsdam.yaml) and FCN-R50c
+at output stride 8 (the flagship's yaml with MODEL.NAME FCN), each against
+one process's step (the two ResNet-50c models in float64, SP_FLOAT64: in
+float32 their BatchNorms amplify rounding past what the norm's control
+bounds); (b) Trans2Seg's dp1 x tp2 x sp2 step with phase 10 (a)'s checks,
+in float64; (c) no launch of K1 or the backward in any rank's step; (d)
+UperNet-Swin-T's bf16 step at 2 x 1024^2, one process against each dp1 x
+sp2 rank (ms, peak memory, the activations of ``encoder``, ``decoder`` and
+``aux_decoder``). Phases 11, 12 and 13 run their (a) and (d) rank steps
+in one start of the two ranks, their (b) steps in one start of the four,
+and their (d) one-process steps in one process (``sp_phases``).
 
 Any failed check raises, and the script then exits non-zero without the
 final line. ``python3 chip_smoke.py --tp-step`` runs phase 0 and phase 8's
 dp1 x tp2 step alone, ``--sp-step`` phase 0 and phase 9 without (c),
 ``--tpsp-step`` phase 0 and phase 10 without (d), ``--transformer-sp``
-phase 0 and phase 11 at full depth, ``--zoo-sp`` phase 0 and phase 12,
+phase 0 and phase 11 at full depth, ``--zoo-sp`` phase 0 and phases 12
+and 13 at full depth,
 ``--norm-seeds`` phase 0
 and phase 10 (b) from each seed of NORM_SEEDS (every reading printed
 before a check fails),
@@ -1718,8 +1743,9 @@ def _dp_step(model, cfg, device):
     return make_train_step(ddp, get_loss_function(cfg), optimizer)
 
 
-def dp_reference(path, dropout=0.0, cfg=None, seed=0, control=False):
-    """(a)'s global batch of 8 and one process's float32 step on it (dropout
+def dp_reference(path, dropout=0.0, cfg=None, seed=0, control=False, dtype="float32"):
+    """(a)'s global batch of 8 and one process's float32 (or ``dtype``) step
+    on it, which ``grid_step_rank`` then runs in (dropout
     ``dropout``, torch seeded with SP_SEED + ``seed`` before it; BatchNorm on
     batch statistics, through the kernels) of the flagship (or of ``cfg``'s
     model), its weights from torch's seed ``seed``, saved at ``path`` with
@@ -1734,14 +1760,14 @@ def dp_reference(path, dropout=0.0, cfg=None, seed=0, control=False):
     ignored (a mean of the ranks' means)."""
     import torch
     from emrt_tpu_torch.losses import get_loss_function
-    from emrt_tpu_torch.models import get_model
     from emrt_tpu_torch.solver import get_optimizer, get_scheduler
     from emrt_tpu_torch.train import make_train_step
     cfg = _train_config() if cfg is None else cfg
     cfg.TRAIN.DTYPE = "float32"
     torch.manual_seed(seed)
-    model = get_model(cfg, device="cuda", dtype=torch.float32)
+    model = _built_on(cfg, "cuda", torch.float32)
     init = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    model.to(getattr(torch, dtype))
     _set_kernel_and_dropout(model, dropout=dropout)
     gen = torch.Generator(device="cuda").manual_seed(7 + seed)
     n, (h, w) = DP_WORLD * DP_BS, cfg.DATA.CROP_SIZE
@@ -1752,6 +1778,7 @@ def dp_reference(path, dropout=0.0, cfg=None, seed=0, control=False):
     ignored = torch.rand((n, h, w), generator=gen, device="cuda") < share[:, None, None]
     images = torch.randn((n, 3, h, w), generator=gen, device="cuda")
     images[DP_BS:] = 3 * images[DP_BS:] + 2
+    images = images.to(getattr(torch, dtype))
     batch = {"image": images, "label": torch.where(ignored, 255, labels)}
     optimizer = get_optimizer(cfg, model, get_scheduler(cfg))
     step = make_train_step(model, get_loss_function(cfg), optimizer)
@@ -1772,7 +1799,8 @@ def dp_reference(path, dropout=0.0, cfg=None, seed=0, control=False):
         step({"image": images * (1 + CONTROL_EPS), "label": batch["label"]})
         norm_control = optimizer.grad_norm.item()
     torch.save({"init": init, "loss": loss, "batch": {k: v.cpu() for k, v in batch.items()},
-                "norm": norm, "norm_control": norm_control, "dropout_seed": SP_SEED + seed,
+                "dtype": dtype, "norm": norm, "norm_control": norm_control,
+                "dropout_seed": SP_SEED + seed,
                 "grads": grads, "learned_reference": learned, "stats": stats}, path)
     del model, step
     torch.cuda.empty_cache()
@@ -2488,12 +2516,13 @@ def _built_on(cfg, device, dtype):
         return get_model(cfg, device=device, dtype=dtype)
 
 
-def _grid_step(cfg, device, init=None, dropout=None):
-    """``cfg``'s model split over this rank's model group and sharded over
-    its spatial group as the train CLI does it (``split_model_``, then
-    ``shard_model_``; SyncBatchNorm, DDP over the gradient group,
-    ``GradientSync`` over the model group) and its train step. Returns
-    (model, optimizer, step, names of the split parameters)."""
+def _grid_step(cfg, device, init=None, dropout=None, float64=False):
+    """``cfg``'s model (its weights in float64 with ``float64``) split over
+    this rank's model group and sharded over its spatial group as the train
+    CLI does it (``split_model_``, then ``shard_model_``; SyncBatchNorm, DDP
+    over the gradient group, ``GradientSync`` over the model group) and its
+    train step. Returns (model, optimizer, step, names of the split
+    parameters)."""
     import torch
     from torch.nn.parallel import DistributedDataParallel
     from emrt_tpu_torch.losses import get_loss_function
@@ -2507,6 +2536,8 @@ def _grid_step(cfg, device, init=None, dropout=None):
     model = _built_on(cfg, device, dtype)
     if init is not None:
         model.load_state_dict(init)
+    if float64:
+        model.double()
     _set_kernel_and_dropout(model, dropout=dropout)
     split = set(splits_of(model)) if cfg.PARALLEL.MODEL > 1 else set()
     shard_for_the_group(split_for_the_group(cfg, model))
@@ -2633,9 +2664,10 @@ def grid_step_rank(rank, world, devices, reference, grid, path=str(CONFIG), over
     cfg = _variant_config(path, overrides)
     cfg.TRAIN.DTYPE = "float32"
     cfg.PARALLEL.MODEL, cfg.PARALLEL.SPATIAL = grid
-    out = {}
+    out = {"dtype": ref.get("dtype", "float32")}
     with model_parallel(*grid):
-        model, optimizer, step, split = _grid_step(cfg, device, ref["init"], SP_DROPOUT)
+        model, optimizer, step, split = _grid_step(cfg, device, ref["init"], SP_DROPOUT,
+                                                   out["dtype"] == "float64")
         if optimizer.sync is not None:
             optimizer.sync.spread = {}
         specs = splits_of(model)
@@ -2928,7 +2960,7 @@ def report_grid_step(card, what, ranks, grid, calls, seconds=None, strict=True,
                   f"group before the overwrite {out['spread'][1]:.3e} x max ({out['spread'][0]}, "
                   f"tol {TP_SPREAD_TOL}); {out['n_split']} split parameters"
                   if out["n_split"] else "")
-        print(f"{what}: rank {r} float32 step of 8 x {out['rows']} rows x columns, "
+        print(f"{what}: rank {r} {out['dtype']} step of 8 x {out['rows']} rows x columns, "
               f"dropout {SP_DROPOUT}: loss {out['loss']:.9g} against one process's "
               f"{out['loss_ref']:.9g} (rtol {DP_LOSS_RTOL}); gradients |grid-one|/|one| (L2) "
               f"{out['grad_rel']:.3e} (tol {TRAIN_BN_GRAD_RTOL}); BatchNorm running statistics "
@@ -2954,20 +2986,20 @@ def report_grid_step(card, what, ranks, grid, calls, seconds=None, strict=True,
           f"{ranks[0]['state_sha256'][:16]}, {ranks[0]['replicated_sha256'][:16]})")
     step_ms = ", ".join(f"{out['step_ms']:.2f}" for out in ranks)
     peaks = ", ".join(f"{out['peak_gib']:.3f}" for out in ranks)
-    print(f"{what}: float32 steps a rank {step_ms} ms (median of {GRID_TIMED}, CUDA "
+    print(f"{what}: {ranks[0]['dtype']} steps a rank {step_ms} ms (median of {GRID_TIMED}, CUDA "
           f"events), peak memory {peaks} GiB ({card}; the ranks share one card over gloo: "
           f"not a scaling figure)")
     return tuple(sum(out["launches_a"][i] for out in ranks) for i in range(2)), failures
 
 
 def _backbone_reference(tmp, name, path, pairs=(), seed=0):
-    """The ``dp_reference`` (dropout SP_DROPOUT, with its control) of the
-    model at ``path`` with config ``pairs`` from ``seed``, made once under
-    ``tmp``; returns its path."""
+    """The ``dp_reference`` (dropout SP_DROPOUT, with its control; in float64
+    for SP_FLOAT64's models) of the model at ``path`` with config ``pairs``
+    from ``seed``, made once under ``tmp``; returns its path."""
     reference = Path(tmp) / f"{name} seed {seed}.pt"
     if not reference.exists():
         dp_reference(reference, dropout=SP_DROPOUT, cfg=_variant_config(path, pairs), seed=seed,
-                     control=True)
+                     control=True, dtype="float64" if name in SP_FLOAT64 else "float32")
     return str(reference)
 
 
@@ -3001,39 +3033,64 @@ def calls_rank(rank, world, calls):
     return [fn(rank, world, *args) for fn, args in calls]
 
 
-def sharded_steps(card, phase, tmp, steps, memory, legs):
-    """Phase 10 (b), (e) and phase 11 (a), (d) (``legs``): the dp1 x sp2
-    float32 step of each of ``steps`` ((name, yaml, config pairs, the
-    encoder's queries)) against one process's (``_backbone_reference``
-    under ``tmp``; ``report_grid_step``), then the bf16 memory step of each
-    of ``memory`` ((name, yaml, regions, crop)) on the same two ranks, all
-    in one start of them; then each memory step's one process, all in one
-    process (``report_large_step``; each counted from what its process
-    held before it). Returns the launches of the checked steps and the
-    memory ratios by name."""
+def sharded_steps(card, what, tmp, steps, memory):
+    """Phase 10 (b), (e) and phases 11-13 (a), (d) (``what``): the dp1 x sp2
+    step of each of ``steps`` ((tag, name, yaml, config pairs, the encoder's
+    queries)) against one process's (``_backbone_reference`` under ``tmp``;
+    ``report_grid_step``), then the bf16 memory step of each of ``memory``
+    ((tag, name, yaml, regions, crop)) on the same two ranks, all in one
+    start of them; then each memory step's one process, all in one process
+    (``report_large_step``; each counted from what its process held before
+    it). Returns the launches of each checked step and the memory ratios by
+    name."""
     from emrt_tpu_torch.parallel.launch import run_ranks
     devices = ["cuda:0"] * SP_WORLD
     jobs = [(grid_step_rank, (devices, _backbone_reference(tmp, name, path, pairs),
                               (1, SP_WORLD), str(path), pairs))
-            for name, path, pairs, _ in steps]
-    large = [(str(path), regions, crop) for _, path, regions, crop in memory]
+            for _, name, path, pairs, _ in steps]
+    large = [(str(path), regions, crop) for _, _, path, regions, crop in memory]
     t0 = time.perf_counter()
     ranks = run_ranks(calls_rank, SP_WORLD, args=(
         jobs + [(large_step_rank, (devices, *args)) for args in large],), timeout=1800)
-    print(f"{phase} {legs[0]}, {legs[1]}: dp1 x sp{SP_WORLD} on {', '.join(devices)}: the "
-          f"ranks ran the {len(jobs)} steps of {legs[0]} and the {len(large)} of {legs[1]} in "
+    print(f"{what}: dp1 x sp{SP_WORLD} on {', '.join(devices)}: the ranks ran the "
+          f"{len(jobs)} checked steps and the {len(large)} memory steps in "
           f"{time.perf_counter() - t0:.1f} s")
-    launches, ratios = (0, 0), {}
-    for i, (name, _, _, len_q) in enumerate(steps):
-        got, _ = report_grid_step(card, f"{phase} {legs[0]} {name}", [r[i] for r in ranks],
-                                  (1, SP_WORLD), _encoder_calls(HEADS, len_q))
-        launches = tuple(a + b for a, b in zip(launches, got))
-    ones = run_ranks(calls_rank, 1, args=(
-        [(large_step_rank, (devices[:1], *args)) for args in large],), timeout=1200)[0]
-    for i, ((name, *_), (_, _, crop)) in enumerate(zip(memory, large)):
-        ratios[name] = report_large_step(card, f"{phase} {legs[1]} {name}", ones[i],
-                                         [r[len(jobs) + i] for r in ranks], crop, devices)
+    launches = [report_grid_step(card, f"{tag} {name}", [r[i] for r in ranks], (1, SP_WORLD),
+                                 _encoder_calls(HEADS, len_q))[0]
+                for i, (tag, name, _, _, len_q) in enumerate(steps)]
+    ratios = {}
+    if large:
+        ones = run_ranks(calls_rank, 1, args=(
+            [(large_step_rank, (devices[:1], *args)) for args in large],), timeout=1200)[0]
+        for i, ((tag, name, *_), (_, _, crop)) in enumerate(zip(memory, large)):
+            ratios[name] = report_large_step(card, f"{tag} {name}", ones[i],
+                                             [r[len(jobs) + i] for r in ranks], crop, devices)
     return launches, ratios
+
+
+def tpsp_steps(card, tmp, steps):
+    """Phases 11-13 (b): the dp1 x tp2 x sp2 step of each of ``steps``
+    ((tag, name, yaml, config pairs, the encoder's queries, its split
+    parameters)) against one process's (``_backbone_reference`` under
+    ``tmp``), all in one start of the four ranks, with phase 10 (a)'s checks
+    (``report_grid_step``). Returns the launches of each step."""
+    from emrt_tpu_torch.parallel.launch import run_ranks
+    n = TPSP_GRID[0] * TPSP_GRID[1]
+    devices = ["cuda:0"] * n
+    jobs = [(grid_step_rank, (devices, _backbone_reference(tmp, name, path, pairs), TPSP_GRID,
+                              str(path), pairs)) for _, name, path, pairs, _, _ in steps]
+    t0 = time.perf_counter()
+    ranks = run_ranks(calls_rank, n, args=(jobs,), timeout=1800)
+    seconds = time.perf_counter() - t0
+    return [report_grid_step(card, f"{tag} {name}", [r[i] for r in ranks], TPSP_GRID,
+                             _encoder_calls(HEADS // TPSP_GRID[0], len_q), seconds,
+                             n_split=n_split)[0]
+            for i, (tag, name, _, _, len_q, n_split) in enumerate(steps)]
+
+
+def _total(launches):
+    """The sum of (forward, backward) launch pairs."""
+    return tuple(sum(pair[i] for pair in launches) for i in range(2))
 
 
 def phase10_torchrun(save_dir):
@@ -3063,10 +3120,11 @@ def phase10(card, torchrun=True):
         reference = dp_reference(Path(tmp) / "flagship.pt", dropout=SP_DROPOUT, control=True)
         launches, _ = phase10_step(card, "phase 10 (a)", reference, TPSP_GRID, TPSP_CALLS)
         got, ratios = sharded_steps(
-            card, "phase 10", tmp, [(name, path, tuple(overrides.items()), len_q)
-                                    for name, path, overrides, len_q in SP_BACKBONES],
-            [("HRNet-W48 EMRT", HRNET_YAML, HRNET_REGIONS, SP_LARGE_CROP)], ("(b)", "(e)"))
-        launches = tuple(a + b for a, b in zip(launches, got))
+            card, "phase 10 (b), (e)", tmp,
+            [("phase 10 (b)", name, path, tuple(overrides.items()), len_q)
+             for name, path, overrides, len_q in SP_BACKBONES],
+            [("phase 10 (e)", "HRNet-W48 EMRT", HRNET_YAML, HRNET_REGIONS, SP_LARGE_CROP)])
+        launches = _total([launches, *got])
         ratio = ratios["HRNet-W48 EMRT"]
         if torchrun:
             phase10_torchrun(str(Path(tmp) / "torchrun"))
@@ -3102,33 +3160,20 @@ DEPTH_CUT = {"CSwin": (("MODEL.TRANS.STAGE_DEPTHS", "(1, 2, 2, 1)"),),
 VIT_CUT_SPLIT = TP_SPLIT + 8 * 3
 
 
-def phase11(card, cut=False):
-    """Spatial parallelism of the transformer-backbone EMRTs (CSwin, ViT-L,
-    SegFormer-B4) at full width with seeded weights, the ranks on the one
-    card over gloo: (a) each one's dp1 x sp2 step and (b) ViT-L's dp1 x tp2
-    x sp2 step against one process's, at full depth or, with ``cut``, at
-    DEPTH_CUT's, (c) their kernels' launches, (d) peak memory a rank against
-    one process's at full depth. Returns the forward and backward launches
-    of the ranks' steps and (d)'s ratios."""
-    import tempfile
-
-    import torch
-    torch.cuda.empty_cache()
+def phase11_specs(cut):
+    """Phase 11's checked steps, memory steps and tp x sp steps (as
+    ``sharded_steps`` and ``tpsp_steps`` take them): (a) each of
+    SP_TRANSFORMERS' dp1 x sp2 steps and (b) ViT-L's dp1 x tp2 x sp2 step at
+    full depth or, with ``cut``, at DEPTH_CUT's, (d) their bf16 peak memory a
+    rank at full depth."""
     depth = (lambda name: DEPTH_CUT.get(name, ())) if cut else (lambda name: ())
-    with tempfile.TemporaryDirectory() as tmp:
-        launches, ratios = sharded_steps(
-            card, "phase 11", tmp, [(name, path, depth(name), len_q)
-                                    for name, path, len_q, *_ in SP_TRANSFORMERS],
-            [(f"{name} EMRT", path, regions, crop)
-             for name, path, _, crop, regions in SP_TRANSFORMERS], ("(a)", "(d)"))
-        name, path, len_q, _, _ = SP_TRANSFORMERS[1]
-        got, _ = phase10_backbone(card, tmp, name, path, dict(depth(name)), len_q,
-                                  what="phase 11 (b)", grid=TPSP_GRID,
-                                  n_split=VIT_CUT_SPLIT if cut else VIT_SPLIT)
-        launches = tuple(a + b for a, b in zip(launches, got))
-    print(f"phase 11: K1 / K2-K3 launches in the ranks' steps{' (depth cut)' if cut else ''}: "
-          f"{launches}")
-    return launches, ratios
+    name, path, len_q, _, _ = SP_TRANSFORMERS[1]
+    return ([("phase 11 (a)", name, path, depth(name), len_q)
+             for name, path, len_q, *_ in SP_TRANSFORMERS],
+            [("phase 11 (d)", f"{name} EMRT", path, regions, crop)
+             for name, path, _, crop, regions in SP_TRANSFORMERS],
+            [("phase 11 (b)", name, path, depth(name), len_q,
+              VIT_CUT_SPLIT if cut else VIT_SPLIT)])
 
 
 # ------------------------------ phase 12: SP of the zoo's global-attention models
@@ -3152,6 +3197,20 @@ SP_ZOO = (
     ("SegFormer-B5", "segformer/segformer_b5_512x512_160k_ade20k.yaml", ZOO_SP_CLIP))
 # (b): SETR-PUP-L's split parameters under tp2: 3 in each of its 24 attentions
 SETR_SPLIT = 24 * 3
+# the whole script's depth cut of (a) and (b) (``--zoo-sp`` runs them at full
+# depth), to make room for phase 13 in its time limit: the ViT-L encoders at 8
+# of their 24 layers, their taps spread over them ((b)'s split parameters then
+# 3 in each of 8 attentions), DeiT-B at 4 of its 12, SegFormer-B5's third
+# stage at 8 of its 40 blocks
+ZOO_DEPTH_CUT = {**{name: (("MODEL.TRANS.NUM_LAYERS", "8"),
+                           ("MODEL.ENCODER.OUT_INDICES", "(7,)" if "Segmenter" in name
+                            else "(1, 3, 5, 7)"))
+                    for name in ("SETR-PUP-L", "SETR-MLA-L", "DPT-L project",
+                                 "Segmenter ViT-L mask")},
+                 "Segmenter DeiT-B distilled mask": (("MODEL.TRANS.NUM_LAYERS", "4"),
+                                                     ("MODEL.ENCODER.OUT_INDICES", "(3,)")),
+                 "SegFormer-B5": (("MODEL.TRANS.STAGE_DEPTHS", "(3, 6, 8, 3)"),)}
+SETR_CUT_SPLIT = 8 * 3
 # (d): SETR-PUP-L's bf16 memory step at the cityscapes yaml's 768^2 crop, 2 a
 # step (the yaml's batch of 8 one card holds neither whole nor in two ranks),
 # and the regions whose activations it reads
@@ -3159,35 +3218,95 @@ SETR_768 = ROOT / "configs" / "setr" / "SETR_PUP_Large_768x768_80k_cityscapes.ya
 SETR_REGIONS = ("encoder", "decoder", "aux_decoder2", "aux_decoder3", "aux_decoder4",
                 "aux_decoder5")
 
+# ------------------------------ phase 13: SP of UperNet, Trans2Seg and FCN
 
-def phase12(card):
-    """Spatial parallelism of the zoo's global-attention models (SETR, DPT,
-    the Segmenter, SegFormer: the whole model on a rank's rows) at full
-    width and depth with seeded weights, the ranks on the one card over
-    gloo: (a) each of SP_ZOO's dp1 x sp2 f32 steps against one process's
-    (``sharded_steps``, phase 10 (b)'s checks and bounds), (b) SETR-PUP-L's
-    dp1 x tp2 x sp2 step with phase 10 (a)'s, (c) no launch of K1 or the
-    backward in any rank's step (the zoo runs no deformable attention), (d)
-    SETR-PUP-L's bf16 peak memory a rank against one process's at 2 x
-    768^2. Returns the launches of the ranks' steps and (d)'s ratio."""
+# (a): dp1 x sp2 of the rest of the zoo at full width and depth, at 256^2:
+# UperNet with each backbone from its Potsdam yaml (512^2, built at the 256
+# crop), Trans2Seg-medium and FCN-R50c at output stride 8 (no yaml names FCN:
+# the flagship's ResNet yaml with MODEL.NAME FCN, as the zoo builds it)
+FCN_OS8 = (("MODEL.NAME", "FCN"), ("MODEL.ENCODER.TYPE", "resnet50c"),
+           ("MODEL.OUTPUT_STRIDE", "8"))
+UPERNET_SWIN = "upernet_swin/upernet_swin_tiny_patch4_windown7_512x512_160k_potsdam.yaml"
+TRANS2SEG = "trans2seg/Trans2Seg_medium_256x256_160k_potsdam.yaml"
+SP_ZOO_REST = (
+    ("UperNet-Swin-T", UPERNET_SWIN, ZOO_SP_CROP),
+    ("UperNet-CSwin-T", "upernet_cswin/upernet_cswin_tiny_patch4_512x512_160k_potsdam.yaml",
+     ZOO_SP_CROP),
+    ("UperNet-Focal-B",
+     "upernet_focal/upernet_focal_base_patch4_windown7_512x512_160k_potsdam.yaml", ZOO_SP_CROP),
+    ("Trans2Seg-medium", TRANS2SEG, ()),
+    ("FCN-R50c OS8", "EMRT/EMRT_256x256_160k_potsdam.yaml", FCN_OS8))
+# the ResNet-50c models' steps run in float64, as their CPU tests do: in
+# float32 their BatchNorms amplify the rounding of the halo strips' convs
+# past what the norm's control bounds (Trans2Seg: the norm 2.731e-03 apart
+# against a control of 1.856e-04)
+SP_FLOAT64 = ("Trans2Seg-medium", "FCN-R50c OS8")
+# (b): Trans2Seg-medium's split parameters under tp2: 2 in each of its 4
+# encoder attentions (the bias-free qkv's weight, the projection's weight)
+TRANS2SEG_SPLIT = 4 * 2
+# (d): UperNet-Swin-T's bf16 memory step at 2 x 1024^2 and its regions (the
+# four stage LayerNorms run between ``encoder`` and ``decoder``: their maps
+# count in the decoder's share)
+UPERNET_REGIONS = ("encoder", "decoder", "aux_decoder")
+
+
+def phase12_specs(cut):
+    """Phases 12 and 13's checked steps, memory steps and tp x sp steps (as
+    ``sharded_steps`` and ``tpsp_steps`` take them). Phase 12, the
+    global-attention models (SETR, DPT, the Segmenter, SegFormer: the whole
+    model on a rank's rows): (a) each of SP_ZOO's dp1 x sp2 f32 steps, (b)
+    SETR-PUP-L's dp1 x tp2 x sp2 step, at full depth or, with ``cut``,
+    ZOO_DEPTH_CUT's; (d) SETR-PUP-L's bf16 peak memory a rank at 2 x 768^2.
+    Phase 13, UperNet (Swin, CSwin, Focal), Trans2Seg and FCN: (a) each of
+    SP_ZOO_REST's dp1 x sp2 steps (SP_FLOAT64's in float64), (b)
+    Trans2Seg's dp1 x tp2 x sp2 step, (d) UperNet-Swin-T's bf16 peak memory
+    a rank at 2 x 1024^2, all at full depth."""
+    configs = ROOT / "configs"
+    depth = (lambda name: ZOO_DEPTH_CUT.get(name, ())) if cut else (lambda name: ())
+    name, yaml, pairs = SP_ZOO[0]
+    return ([("phase 12 (a)", name, configs / yaml, pairs + depth(name), None)
+             for name, yaml, pairs in SP_ZOO]
+            + [("phase 13 (a)", name, configs / yaml, pairs, None)
+               for name, yaml, pairs in SP_ZOO_REST],
+            [("phase 12 (d)", "SETR-PUP-L", SETR_768, SETR_REGIONS, 768),
+             ("phase 13 (d)", "UperNet-Swin-T", configs / UPERNET_SWIN, UPERNET_REGIONS,
+              SP_LARGE_CROP)],
+            [("phase 12 (b)", name, configs / yaml, pairs + depth(name), None,
+              SETR_CUT_SPLIT if cut else SETR_SPLIT),
+             ("phase 13 (b)", "Trans2Seg-medium", configs / TRANS2SEG, (), None,
+              TRANS2SEG_SPLIT)])
+
+
+def sp_phases(card, phases, cut=False):
+    """Spatial parallelism at full width with seeded weights, the ranks on
+    the one card over gloo, of phase 11 (the transformer-backbone EMRTs)
+    and of phases 12-13 (the zoo) (``phases``: ``phase11_specs``,
+    ``phase12_specs``), their (a) and (d) rank steps in one start of the two
+    ranks, their (d) one-process steps in one process, their (b) steps in
+    one start of the four ranks: a start costs ~15-25 s on the card's
+    shared host. (c): phase 11's steps launch K1 and the backward 6 / 6
+    times each (``grid_step_failures``), the zoo's 0 / 0. Returns each
+    phase's launches (phases 12 and 13 as one) and (d)'s ratios by name."""
     import tempfile
 
     import torch
     torch.cuda.empty_cache()
-    configs = ROOT / "configs"
+    specs = [spec(cut) for spec in phases]
+    steps, memory, tpsp = ([item for spec in specs for item in spec[i]] for i in range(3))
+    what = " and ".join("phase 11" if spec is phase11_specs else "phases 12-13"
+                        for spec in phases)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, ratios = sharded_steps(
-            card, "phase 12", tmp, [(name, configs / yaml, pairs, None)
-                                    for name, yaml, pairs in SP_ZOO],
-            [("SETR-PUP-L", SETR_768, SETR_REGIONS, 768)], ("(a)", "(d)"))
-        name, yaml, pairs = SP_ZOO[0]
-        got, _ = phase10_backbone(card, tmp, name, configs / yaml, dict(pairs), None,
-                                  what="phase 12 (b)", grid=TPSP_GRID, n_split=SETR_SPLIT)
-        launches = tuple(a + b for a, b in zip(launches, got))
-    check(launches == (0, 0), f"phase 12 (c): the zoo's rank steps launched K1 / K2-K3 "
-                              f"{launches} times")
-    print(f"phase 12 (c): K1 / K2-K3 launches in the ranks' steps: {launches}")
-    return launches, ratios["SETR-PUP-L"]
+        launches, ratios = sharded_steps(card, f"{what} (a), (d)", tmp, steps, memory)
+        launches += tpsp_steps(card, tmp, tpsp)
+    tags = [tag for tag, *_ in steps] + [tag for tag, *_ in tpsp]
+    by_phase = {11: _total([n for t, n in zip(tags, launches) if t.startswith("phase 11")]),
+                12: _total([n for t, n in zip(tags, launches) if not t.startswith("phase 11")])}
+    if phase12_specs in phases:
+        check(by_phase[12] == (0, 0), f"phases 12-13 (c): the zoo's rank steps launched K1 / "
+                                      f"K2-K3 {by_phase[12]} times")
+    print(f"{what} (c): K1 / K2-K3 launches in the ranks' steps (phase 11; phases 12-13)"
+          f"{' (depth cut)' if cut else ''}: {by_phase[11]}; {by_phase[12]}")
+    return by_phase, ratios
 
 
 _CATEGORIES = (   # (category, substrings of a kernel's name), first match wins
@@ -3290,10 +3409,9 @@ def main():
     ended("phase 9")
     tpsp_launches, _ = phase10(card)
     ended("phase 10")
-    sp_transformer_launches, _ = phase11(card, cut=True)
-    ended("phase 11")
-    sp_zoo_launches, _ = phase12(card)
-    ended("phase 12")
+    sp_launches_by_phase, _ = sp_phases(card, (phase11_specs, phase12_specs), cut=True)
+    sp_transformer_launches, sp_zoo_launches = sp_launches_by_phase[11], sp_launches_by_phase[12]
+    ended("phases 11-13")
     from emrt_tpu_torch.ops import deformable_cuda
     name, levels, len_q = SHAPES[0]
     fwd = fwd_times[name, BS, torch.bfloat16]
@@ -3392,15 +3510,15 @@ def main_transformer_sp():
     """``--transformer-sp``: phase 0, then phase 11 ((a)-(d) over gloo, the
     ranks on the first card)."""
     card = phase0()
-    phase11(card)
+    sp_phases(card, (phase11_specs,))
     print("chip_smoke.py --transformer-sp: passed")
 
 
 def main_zoo_sp():
-    """``--zoo-sp``: phase 0, then phase 12 ((a)-(d) over gloo, the ranks on
-    the first card)."""
+    """``--zoo-sp``: phase 0, then phases 12 and 13 at full depth ((a)-(d)
+    over gloo, the ranks on the first card)."""
     card = phase0()
-    phase12(card)
+    sp_phases(card, (phase12_specs,))
     print("chip_smoke.py --zoo-sp: passed")
 
 

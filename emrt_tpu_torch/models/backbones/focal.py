@@ -20,6 +20,16 @@ tables' shapes) depends on the input size: ``img_size`` fixes it. Stage
 outputs are the raw pre-downsample maps (NCHW): the UperNet owns the
 per-stage LayerNorms.
 
+Under a spatial shard (``parallel/spatial.py``) a block holds the rank's
+image rows: its norms and MLP run on them, and its attention takes the map
+that every rank's normed rows make after a gather
+(``SpatialShard.gather_rows``), padded after the image's last row as one
+process pads it: the rolled rings and the pooled levels come from that
+whole map, with the masks and unfold tables of the global sizes, and the
+queries are the windows the rank's rows fall in (``swin.window_bands``).
+The patch embeds' convs read their halos (``layers.HaloConv2d``; the
+``useconv`` stem 7/4/2 and downsample 3/2/1).
+
 Parameter names are the reference's (``focal_backbone_map``):
 ``patch_embed.{proj,norm}``, ``layers.{s}.blocks.{b}.{norm1, pool_layers.{k},
 attn.{qkv, proj, relative_position_bias_table,
@@ -37,8 +47,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import DropPath, Mlp, layer_norm, xavier_uniform_
-from .swin import const, relative_position_index, window_partition, window_reverse
+from ..layers import DropPath, Mlp, RowDropout, layer_norm, sharded, xavier_uniform_
+from .swin import (bands_of, const, relative_position_index, window_bands, window_dropout,
+                   window_partition, window_reverse)
 
 _ROLLS = ((-1, -1), (-1, 1), (1, -1), (1, 1))      # tl, tr, bl, br, times e
 
@@ -138,8 +149,9 @@ def _levels(focal_window: int, focal_level: int, pooled: bool):
 
 
 class FocalAttention(nn.Module):
-    """Window attention with focal expansion. forward(x_all): the padded fine
-    map [b, hp, wp, c] and the pooled maps -> [b * nW, ws^2, dim]."""
+    """Window attention with focal expansion. forward(x_all, sel): the padded
+    fine map [b, hp, wp, c] and the pooled maps -> the windows of the
+    window rows ``sel`` [b * len(sel) * nWw, ws^2, dim]."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, expand_size: int,
                  levels, qkv_bias: bool = True, dropout: float = 0.0,
@@ -178,18 +190,23 @@ class FocalAttention(nn.Module):
         self.attn_drop = nn.Dropout(attn_dropout)
         self.proj_drop = nn.Dropout(dropout)
 
-    def forward(self, x_all):
+    def forward(self, x_all, sel):
         ws, e, nh = self.ws, self.e, self.num_heads
         x = x_all[0]
         b, h, w, c = x.shape
         hd = c // nh
-        n_win = (h // ws) * (w // ws)
+        nwh, nww = h // ws, w // ws
+        n_win = len(sel) * nww
+
+        def windows(t):
+            return window_partition(bands_of(t, sel, ws), ws)         # [b*n_win, ws^2, c]
+
         q, k, v = self.qkv(x).chunk(3, dim=-1)
-        q_win = window_partition(q, ws)                          # [b*nW, ws^2, c]
-        k_parts, v_parts = [window_partition(k, ws)], [window_partition(v, ws)]
+        q_win = windows(q)
+        k_parts, v_parts = [windows(k)], [windows(v)]
         if self.n_rolled:
             for parts, t in ((k_parts, k), (v_parts, v)):
-                rolled = torch.cat([window_partition(torch.roll(t, (dy * e, dx * e), (1, 2)), ws)
+                rolled = torch.cat([windows(torch.roll(t, (dy * e, dx * e), (1, 2)))
                                     for dy, dx in _ROLLS], 1)
                 parts.append(rolled[:, self.valid_ind_rolled])
         masks = []
@@ -198,13 +215,15 @@ class FocalAttention(nn.Module):
             _, kp, vp = self.qkv(pooled).chunk(3, dim=-1)
             ku, vu = unfold(kp, kernel, stride), unfold(vp, kernel, stride)
             if lk > 0:
-                sel = getattr(self, f"unfold_index{lk}")
-                ku, vu = ku[:, :, sel], vu[:, :, sel]
-            k_parts.append(ku.reshape(b * n_win, fr * fr, c))
-            v_parts.append(vu.reshape(b * n_win, fr * fr, c))
+                sel_taps = getattr(self, f"unfold_index{lk}")
+                ku, vu = ku[:, :, sel_taps], vu[:, :, sel_taps]
+            for parts, u in ((k_parts, ku), (v_parts, vu)):
+                u = u.reshape(b, nwh, nww, fr * fr, c)[:, sel]
+                parts.append(u.reshape(b * n_win, fr * fr, c))
             hw = tuple(pooled.shape[1:3])
-            masks.append(getattr(self, f"pooled_mask{lk}") if hw == self.pooled_hw[lk]
-                         else const(pooled_mask(*hw, kernel, stride), x))
+            mask = (getattr(self, f"pooled_mask{lk}") if hw == self.pooled_hw[lk]
+                    else const(pooled_mask(*hw, kernel, stride), x))
+            masks.append(mask.view(nwh, nww, -1)[sel].flatten(0, 1))
         k_all, v_all = torch.cat(k_parts, 1), torch.cat(v_parts, 1)
         bw, nq, _ = q_win.shape
         nk = k_all.shape[1]
@@ -227,13 +246,18 @@ class FocalAttention(nn.Module):
                    + masks[lk][None, :, None, None, :]).view(bw, nh, nq, fr * fr)
             segs.append(seg)
             off += fr * fr
-        attn = self.attn_drop(torch.cat(segs, -1).softmax(-1).to(vh.dtype))
+        grid = (b, nwh, sel)
+        attn = window_dropout(torch.cat(segs, -1).softmax(-1).to(vh.dtype), self.attn_drop.p,
+                              self.training, grid)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(bw, nq, c)
-        return self.proj_drop(self.proj(out))
+        return window_dropout(self.proj(out), self.proj_drop.p, self.training, grid)
 
 
 class FocalBlock(nn.Module):
-    """FocalTransformerBlock, shift-free, for an (h, w) map."""
+    """FocalTransformerBlock, shift-free, for an (h, w) map (under a spatial
+    shard h is the image's, the rank's rows times the group)."""
+
+    spatial = None
 
     def __init__(self, dim: int, num_heads: int, resolution, window_size: int = 7,
                  expand_size: int = 3, focal_level: int = 2, focal_window: int = 7,
@@ -268,13 +292,16 @@ class FocalBlock(nn.Module):
         return self.window_size, self.expand_size
 
     def forward(self, x):
-        """x: [b, h, w, c]."""
+        """x: [b, h, w, c] (a rank's rows under a shard)."""
         b, h, w, c = x.shape
-        ws = self.ws
-        if self._geometry(h, w) != (ws, self.attn.e):
-            raise ValueError(f"map {h}x{w}: the block's window {ws} was made for another "
+        ws, shard = self.ws, sharded(self)
+        y, first, full = self.norm1(x), 0, h
+        if shard is not None:
+            y, first, full = shard.gather_rows(y, dim=1), shard.rank * h, h * shard.world
+        if self._geometry(full, w) != (ws, self.attn.e):
+            raise ValueError(f"map {full}x{w}: the block's window {ws} was made for another "
                              f"input size")
-        y = F.pad(self.norm1(x), (0, 0, 0, -w % ws, 0, -h % ws))
+        y = F.pad(y, (0, 0, 0, -w % ws, 0, -full % ws))
         hp, wp = y.shape[1:3]
         x_all = [y]
         for k, (g, fc) in enumerate(zip(self.wsg, self.pool_layers)):
@@ -282,7 +309,8 @@ class FocalBlock(nn.Module):
             win = _fit(y, ph * g, pw * g).reshape(b, ph, g, pw, g, c)
             win = win.permute(0, 1, 3, 5, 2, 4).reshape(b, ph, pw, c, g * g)
             x_all.append(fc(win)[..., 0])
-        out = window_reverse(self.attn(x_all), ws, hp, wp)[:, :h, :w]
+        sel, rows = window_bands(first, h, hp, ws)
+        out = window_reverse(self.attn(x_all, sel), ws, len(sel) * ws, wp)[:, rows, :w]
         x = x + self.drop_path(out)
         return x + self.drop_path(self.mlp(self.norm2(x)))
 
@@ -329,7 +357,7 @@ class FocalTransformer(nn.Module):
                  drop_path_rate: float = 0.2):
         super().__init__()
         self.patch_embed = FocalPatchEmbed(3, embed_dim, patch_size, use_conv_embed, True)
-        self.pos_drop = nn.Dropout(dropout)
+        self.pos_drop = RowDropout(dropout, 1)
         res = tuple(self.patch_embed.out_size(n) for n in img_size)
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, sum(depths))]
         layers, dim, blk = [], embed_dim, 0

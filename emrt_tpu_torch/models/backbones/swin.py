@@ -18,6 +18,17 @@ fixes them, as the JAX package's init shape does. The index table and the
 shift mask are numpy constants held as non-persistent buffers; a map of
 another padded size builds its mask on the fly.
 
+Under a spatial shard (``parallel/spatial.py``) a block holds the rank's
+image rows: the norms, the MLP and ``PatchMerging`` run on them (a rank's
+row count is even at every stage: ``spatial_stride`` 32), and the window
+attention takes the map that every rank's normed rows make after a gather
+(``SpatialShard.gather_rows``), padded and rolled as one process pads and
+rolls it (the zero rows after the image's last row, the cyclic wrap of the
+first rows of spatial rank 0 into the last window row), then attends within
+the windows the rank's rows fall in (``window_bands``) over the global
+geometry's tables and mask. Its dropouts draw the mask of every window
+(``window_dropout``), so that one process and a shard draw alike.
+
 Parameter names are the reference's (``swin_backbone_map``):
 ``patch_embedding.{patch_embed,norm}``, ``stages.{s}.blocks.{b}.{norm1,
 attn.{qkv,proj,relative_position_bias_table}, norm2, mlp.{fc1,fc2}}``,
@@ -32,7 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import DropPath, Mlp, layer_norm, xavier_uniform_
+from ..layers import DropPath, Mlp, RowDropout, layer_norm, sharded, xavier_uniform_
 
 
 def window_partition(x, ws: int):
@@ -83,10 +94,45 @@ def _pad_to(n: int, ws: int) -> int:
     return n + (ws - n % ws) % ws
 
 
+def window_bands(first: int, rows: int, padded: int, ws: int, shift: int = 0):
+    """(the window rows, in order, of a map of ``padded`` rows rolled by
+    ``-shift`` that the image rows ``[first, first + rows)`` fall in; each of
+    those rows' place in the bands of ``ws`` rows of those window rows,
+    concatenated). Image row j sits at row (j - shift) mod ``padded`` of the
+    rolled map: a shifted map wraps its first rows into the last window
+    row."""
+    pos = [(j - shift) % padded for j in range(first, first + rows)]
+    sel = sorted({p // ws for p in pos})
+    where = {r: i for i, r in enumerate(sel)}
+    return sel, [where[p // ws] * ws + p % ws for p in pos]
+
+
+def bands_of(x, sel, ws: int):
+    """The bands of window rows ``sel`` of an NHWC map [b, h, w, c],
+    concatenated along h."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // ws, ws, w, c)[:, sel].reshape(b, len(sel) * ws, w, c)
+
+
+def window_dropout(t, p: float, training: bool, grid):
+    """Dropout of ``t`` [b * len(sel) * nww, ...], the windows of the window
+    rows ``sel`` of a map of ``nwh`` window rows (``grid`` = (b, nwh, sel)):
+    the keep mask of every window is drawn, as one process draws it, and
+    ``sel``'s kept (``layers.split_dropout``'s scaling)."""
+    if not training or p == 0.0:
+        return t
+    b, nwh, sel = grid
+    keep = 1.0 - p
+    mask = torch.empty((b, nwh, t.shape[0] // (b * len(sel)), *t.shape[1:]), dtype=torch.bool,
+                       device=t.device).bernoulli_(keep)[:, sel].reshape(t.shape)
+    return torch.ops.aten.native_dropout_backward(t, mask, 1.0 / keep)
+
+
 class WindowAttention(nn.Module):
     """Multi-head attention within windows, fused ``qkv`` (q, k, v column
     blocks), the relative-position bias and the optional shift mask added
-    to the float32 logits."""
+    to the float32 logits; ``grid`` (b, nwh, sel): the windows are those of
+    the window rows ``sel`` of ``nwh`` (``window_dropout``)."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int, attn_dropout: float = 0.0,
                  dropout: float = 0.0):
@@ -102,7 +148,7 @@ class WindowAttention(nn.Module):
         self.attn_drop = nn.Dropout(attn_dropout)
         self.proj_drop = nn.Dropout(dropout)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, grid, mask=None):
         bw, n, c = x.shape
         hd = c // self.num_heads
         q, k, v = self.qkv(x).view(bw, n, 3, self.num_heads, hd).unbind(2)
@@ -113,14 +159,18 @@ class WindowAttention(nn.Module):
             nw = mask.shape[0]
             attn = (attn.view(bw // nw, nw, self.num_heads, n, n)
                     + mask[None, :, None]).view(bw, self.num_heads, n, n)
-        attn = self.attn_drop(attn.softmax(-1).to(v.dtype))
+        attn = window_dropout(attn.softmax(-1).to(v.dtype), self.attn_drop.p, self.training,
+                              grid)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(bw, n, c)
-        return self.proj_drop(self.proj(out))
+        return window_dropout(self.proj(out), self.proj_drop.p, self.training, grid)
 
 
 class SwinBlock(nn.Module):
     """One (shifted-)window block for an (h, w) map: the window is
-    min(window_size, h, w), and shifts only when smaller than the map."""
+    min(window_size, h, w), and shifts only when smaller than the map. Under
+    a spatial shard h is the image's, the rank's rows times the group."""
+
+    spatial = None
 
     def __init__(self, dim: int, num_heads: int, resolution, window_size: int = 7,
                  shift_size: int = 0, mlp_ratio: float = 4.0, dropout: float = 0.0,
@@ -144,23 +194,29 @@ class SwinBlock(nn.Module):
         return ws, (self.shift_size if ws < min(h, w) else 0)
 
     def forward(self, x):
-        """x: [b, h, w, c]."""
-        _, h, w, _ = x.shape
-        ws, shift = self.ws, self.shift
-        if self._geometry(h, w) != (ws, shift):
-            raise ValueError(f"map {h}x{w}: the block's window {ws} (shift {shift}) was made "
-                             f"for another input size")
-        y = F.pad(self.norm1(x), (0, 0, 0, -w % ws, 0, -h % ws))
+        """x: [b, h, w, c] (a rank's rows under a shard)."""
+        b, h, w, c = x.shape
+        ws, shift, shard = self.ws, self.shift, sharded(self)
+        y, first, full = self.norm1(x), 0, h
+        if shard is not None:
+            y, first, full = shard.gather_rows(y, dim=1), shard.rank * h, h * shard.world
+        if self._geometry(full, w) != (ws, shift):
+            raise ValueError(f"map {full}x{w}: the block's window {ws} (shift {shift}) was "
+                             f"made for another input size")
+        y = F.pad(y, (0, 0, 0, -w % ws, 0, -full % ws))
         hp, wp = y.shape[1:3]
+        sel, rows = window_bands(first, h, hp, ws, shift)
         mask = None
         if shift:
             y = torch.roll(y, (-shift, -shift), (1, 2))
             mask = (self.attn_mask if (hp, wp) == self.mask_hw
                     else const(shift_attn_mask(hp, wp, ws, shift), x))
-        y = window_reverse(self.attn(window_partition(y, ws), mask), ws, hp, wp)
+            mask = mask.view(hp // ws, wp // ws, ws * ws, ws * ws)[sel].flatten(0, 1)
+        y = self.attn(window_partition(bands_of(y, sel, ws), ws), (b, hp // ws, sel), mask)
+        y = window_reverse(y, ws, len(sel) * ws, wp)
         if shift:
-            y = torch.roll(y, (shift, shift), (1, 2))
-        x = x + self.drop_path(y[:, :h, :w])
+            y = torch.roll(y, shift, 2)
+        x = x + self.drop_path(y[:, rows, :w])
         return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
@@ -203,7 +259,7 @@ class SwinTransformer(nn.Module):
                  drop_path_rate: float = 0.2):
         super().__init__()
         self.patch_embedding = _PatchEmbedding(patch_size, embed_dim)
-        self.pos_drop = nn.Dropout(dropout)
+        self.pos_drop = RowDropout(dropout, 1)
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, sum(depths))]
         res = (img_size[0] // patch_size, img_size[1] // patch_size)
         stages, dim, blk = [], embed_dim, 0

@@ -114,12 +114,14 @@ def sharded(module):
 
 class ShardedWhole:
     """A zoo model that a spatial shard splits whole (SETR, Segmenter, DPT,
-    SegFormer: ``parallel/spatial.py``). It has no replicated region: in
-    training mode under a ``SpatialShard`` (``spatial``) every module runs
-    on the rank's image rows (the backbone's attentions over keys and
-    values gathered from the group, the heads' convs through halos, their
-    resizes through ``upsample``, their BatchNorm over the gradient group)
-    and its outputs are the rank's rows. A model with prefix tokens (ViT's
+    SegFormer, UperNet, FCN: ``parallel/spatial.py``). In training mode
+    under a ``SpatialShard`` (``spatial``) every module runs on the rank's
+    image rows (the backbone's attentions over keys and values gathered
+    from the group, the heads' convs through halos, their resizes through
+    ``upsample``, their BatchNorm over the gradient group) and its outputs
+    are the rank's rows; a module marked ``spatial_replicated`` (the
+    UperHead's pyramid-pooling bins) runs on a map gathered whole on every
+    rank. A model with prefix tokens (ViT's
     cls token, DeiT's two) holds them on spatial rank 0 alone, so that the
     other ranks' steps leave them without a gradient: DistributedDataParallel
     then has to look for unused parameters, and only then."""
@@ -180,7 +182,9 @@ def upsample(x, size, shard=None, align_corners: bool = False):
     which a resize over the rank's rows alone would clamp to its own edge
     row). HRNet's fuse and the zoo's heads (SETR's PUP, Naive and MLA
     heads, DPT's fusion blocks and last x2, SegFormer's stage maps and x4,
-    the Segmenter's masks) resize through here. A resize to the input's
+    the Segmenter's masks, the UperHead's top-down and finest-level
+    resizes and x4, UperNet's aux x16, Trans2Seg's and FCN's) resize
+    through here. A resize to the input's
     own size is the identity, sharded or not."""
     if shard is None or tuple(int(v) for v in size) == tuple(x.shape[-2:]):
         return resize_bilinear(x, size, align_corners)

@@ -20,6 +20,20 @@ pos_embed, blocks_encoder.{i}.{norm1, attn.{qkv,proj}, norm2, mlp}, norm}``,
 norm1_clsembed, norm2, norm3, norm4, attn.{fc_q,fc_kv,proj}, mlp, mlp2,
 mlp3}}``, ``cnn_head.{lay1,lay2,lay3}.block.{depthwise, bn_depth,
 pointwise, bn_point}``, ``cnn_head.conv_c1.{conv,bn}``, ``cnn_head.pred``.
+
+Under spatial parallelism (``parallel/spatial.py``) the model has a sharded
+region, the ResNet and the CNN head, which run on a rank's image rows (their
+convs, the head's depthwise 3x3s too, through halos; their BatchNorms over
+the gradient group), and a replicated one, the hybrid embed, the encoder
+and the decoder, which run whole on every rank: the learned position table
+covers the whole map, and the decoder's ``norm4`` / ``mlp3`` mix the
+attention maps over all of their HW positions. The ResNet's c4 is gathered
+(``SpatialShard.gather_rows``), and the features and attention maps are cut
+to the rank's rows (``own_rows``) for the head, whose two align_corners=True
+resizes (to c1, x2 or x4, and to the input, x4) go through
+``layers.upsample``. Under tensor x spatial parallelism the encoder and
+decoder are split over the model group (``parallel/tensor.py``) and run on
+the maps each spatial group gathers.
 """
 from __future__ import annotations
 
@@ -27,10 +41,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.resize import resize_bilinear
 from .backbones.resnet import backbone_channels, resnet
 from .backbones.vit import Attention
-from .layers import BatchNorm2d, Mlp, layer_norm, xavier_uniform_
+from .layers import BatchNorm2d, Mlp, layer_norm, sharded, upsample, xavier_uniform_
 
 
 def _trunc_normal(*shape):
@@ -214,6 +227,7 @@ class Trans2Seg(nn.Module):
     # mlp2 a query and features that nothing reads: DistributedDataParallel
     # must look for unused parameters
     ddp_find_unused_parameters = True
+    spatial = None
 
     def __init__(self, num_classes: int, backbone: str = "resnet50c", output_stride: int = 16,
                  img_size=(512, 512), embed_dim: int = 256, depth: int = 4,
@@ -222,6 +236,7 @@ class Trans2Seg(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.num_classes, self.num_heads = num_classes, num_heads
+        self.spatial_stride = output_stride
         self.cnn_encoder = resnet(50, backbone.endswith("c"), output_stride)
         c1, *_, c4 = backbone_channels(50)
         hw = _stride_out(img_size[0], output_stride) * _stride_out(img_size[1], output_stride)
@@ -231,6 +246,14 @@ class Trans2Seg(nn.Module):
                                             num_classes)
         self.cnn_head = _CNNHead(embed_dim, num_heads, hid_dim, c1)
 
+    def spatial_region(self):
+        """The modules that run on a rank's rows under a spatial shard."""
+        return (self.cnn_encoder, self.cnn_head)
+
+    def spatial_deepest(self):
+        """The ResNet's last stage, at the output stride."""
+        return [self.cnn_encoder.layer4]
+
     def forward(self, images):
         with torch.autocast(images.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
@@ -239,20 +262,26 @@ class Trans2Seg(nn.Module):
 
     def _forward(self, x):
         c1, _, _, c4 = self.cnn_encoder(x)
+        shard = sharded(self)
+        if shard is not None:      # the rows of every rank, for the replicated region
+            c4 = shard.gather_rows(c4)
         b, _, h, w = c4.shape
         nc, head = self.num_classes, self.cnn_head
         tokens = self.hybrid_embed(c4.flatten(2).transpose(1, 2))
         feat = self.transformer_encoder(tokens)[:, 1:]                 # [b, hw, dim]
         attn = self.transformer_decoder(feat)                          # [b, nc, heads, hw]
         amap = attn.reshape(b * nc, self.num_heads, h, w)
-        fexp = feat.transpose(1, 2).reshape(b, 1, -1, h, w).expand(-1, nc, -1, -1, -1)
-        y = torch.cat([fexp.reshape(b * nc, -1, h, w), amap.to(fexp.dtype)], 1)
+        fmap = feat.transpose(1, 2).reshape(b, -1, h, w)
+        if shard is not None:
+            amap, fmap = shard.own_rows(amap), shard.own_rows(fmap)
+        fexp = fmap[:, None].expand(-1, nc, -1, -1, -1).reshape((b * nc,) + fmap.shape[1:])
+        y = torch.cat([fexp, amap.to(fexp.dtype)], 1)
         y = head.lay2(head.lay1(y))
-        y = resize_bilinear(y, c1.shape[2:], align_corners=True)
+        y = upsample(y, c1.shape[2:], shard, align_corners=True)
         c1r = head.conv_c1(c1)
         y = y + c1r[:, None].expand(-1, nc, -1, -1, -1).reshape((b * nc,) + c1r.shape[1:])
         y = head.pred(head.lay3(y)).view(b, nc, *c1.shape[2:])
-        return resize_bilinear(y, x.shape[2:], align_corners=True)
+        return upsample(y, x.shape[2:], shard, align_corners=True)
 
 
 def build_trans2seg(config, dtype=torch.float32) -> Trans2Seg:

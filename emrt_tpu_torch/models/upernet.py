@@ -9,22 +9,32 @@ AUXFCN.UP_RATIO says, and so does the port); both are resized to the
 input. forward(images) -> [main, aux] float32 logits. The JAX UperNet names
 no decoder-learning-rate prefixes, so TRAIN.DECODER_LR_COEF changes
 nothing here either.
+
+Under spatial parallelism (``parallel/spatial.py``, ``layers.ShardedWhole``)
+the whole model runs on a rank's image rows: the backbone's window, stripe
+or focal attentions over the map gathered from the group, its patch
+embeds and merges on the rank's rows (CSwin's and the ``useconv`` Focal's
+convs through halos), the UperHead as ``decoders/uper_head.py`` says, the
+aux head through halos, and both resizes to the input through
+``layers.upsample``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from ..ops.resize import resize_bilinear
 from .backbones.cswin import CSwinTransformer
 from .backbones.focal import FocalTransformer
 from .backbones.swin import SwinTransformer
 from .decoders.fcn_head import FCNHead
 from .decoders.uper_head import UperHead
-from .layers import layer_norm
+from .layers import ShardedWhole, layer_norm, sharded, upsample
 
 
-class UperNet(nn.Module):
+class UperNet(ShardedWhole, nn.Module):
+    spatial_stride = 32                      # the last stage
+    prefix_tokens = False
+
     def __init__(self, num_classes: int, encoder_type: str = "SwinTransformer",
                  img_size=(512, 512), embed_dim: int = 96, depths=(2, 2, 6, 2),
                  num_heads=(3, 6, 12, 24), window_size: int = 7, split_sizes=None,
@@ -61,15 +71,20 @@ class UperNet(nn.Module):
         self.decoder = UperHead(channels, pool_scales, uper_channels, num_classes)
         self.aux_decoder = FCNHead(channels[2], aux_channels, num_classes) if auxihead else None
 
+    def spatial_deepest(self):
+        """The pyramid pooling's ``bottleneck`` (3x3, one row a side): the
+        one conv at stride 32 (the backbones' last stages have none)."""
+        return [self.decoder.bottleneck]
+
     def forward(self, images):
-        size = images.shape[2:]
+        size, shard = images.shape[2:], sharded(self)
         with torch.autocast(images.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             feats = [norm(f.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
                      for norm, f in zip(self.layer_norms, self.encoder(images))]
-            preds = [resize_bilinear(self.decoder(feats), size)]
+            preds = [upsample(self.decoder(feats), size, shard)]
             if self.aux_decoder is not None:
-                preds.append(resize_bilinear(self.aux_decoder(feats[2]), size))
+                preds.append(upsample(self.aux_decoder(feats[2]), size, shard))
         return [p.float() for p in preds]
 
 

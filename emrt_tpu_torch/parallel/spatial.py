@@ -11,13 +11,18 @@ a ResNet, ResNeXt, ResNeSt, HRNet, CSwin, ViT or the SegFormer-B4 MixViT):
 the backbone (HRNet's four branches at strides 4 to 32 and its
 ``input_proj``; CSwin's and ViT's tap norms), the spatial branch, the aux
 FCN head, ``cls_psp`` and ``uphead``. Of the zoo, SETR (MLA, PUP, Naive),
-the Segmenter (ViT or DeiT; mask transformer or linear decoder), DPT and
-SegFormer have no replicated region: the whole model is sharded
-(``models/layers.ShardedWhole``), their heads' resizes give the rank's rows
+the Segmenter (ViT or DeiT; mask transformer or linear decoder), DPT,
+SegFormer, UperNet (Swin, CSwin, Focal) and FCN are sharded whole
+(``models/layers.ShardedWhole``): their heads' resizes give the rank's rows
 (``layers.upsample``), DPT's readout reads spatial rank 0's cls token on
-every rank (``lead_tokens``) and the mask transformer's class tokens run
-replicated on every rank (the attention's ``tail``); UperNet, Trans2Seg and
-FCN are refused (``check_spatial``). What crosses the region's edges:
+every rank (``lead_tokens``), the mask transformer's class tokens run
+replicated on every rank (the attention's ``tail``), Swin's and Focal's
+window attentions take the windows of the rank's rows over the gathered
+map (``models/backbones/swin.window_bands``) and the UperHead's pyramid
+pooling runs over its gathered top map on every rank (its bins' modules are
+``spatial_replicated``). Trans2Seg's sharded region is its ResNet and CNN
+head; its transformer runs whole on every rank on the gathered c4. What
+crosses the region's edges:
 
 * ``SpatialShard.window`` / ``halo``: a conv of kernel k, stride st,
   dilation d and top padding p over local rows divisible by st reads ``p``
@@ -53,7 +58,9 @@ FCN are refused (``check_spatial``). What crosses the region's edges:
   effect) and spreads the sum over the rank's rows;
 * ``SpatialShard.gather_rows``: the whole map, every rank's rows in order,
   for the replicated region (the pyramid pooling, the deformable
-  encoder-decoder with K1-K3 at the full token count, EFP), and the keys
+  encoder-decoder with K1-K3 at the full token count, EFP; the UperHead's
+  pyramid pooling; Trans2Seg's transformer), the normed map of a Swin or
+  Focal block (its windows, rolled rings and pooled levels), and the keys
   and values of every attention of a transformer backbone, whose queries
   are the rank's own tokens: each rank projects its own rows' keys and
   values and the group gathers them (the Segmenter's class tokens, which
@@ -405,21 +412,18 @@ def _deepest_halo(model) -> tuple[int, int]:
 
 def check_spatial(model, spatial: int, crop_h: int):
     """Raise where ``spatial`` ranks cannot split ``model``'s rows at a crop
-    of ``crop_h`` rows: a model that names no ``spatial_stride`` (UperNet,
-    Trans2Seg, FCN), rows at the sharded region's deepest stride (a
-    ResNet's output stride; the patch's 16 for an EMRT-ViT, SETR and the
-    Segmenter; 32 for the other EMRTs, DPT's ``process[3]`` and SegFormer:
-    then also the MixViT's spatial-reduction convs, k = stride = 8, 4, 2 at
-    strides 4 to 16, see only the rank's rows) that ``spatial`` does not
-    divide (DPT's 480^2 yamls: 15 rows at stride 32), or a conv's halo
-    there deeper than a rank's rows (the dilation-4 convs of a ResNet at
-    output stride 8 read 4 rows each side)."""
-    stride = getattr(model, "spatial_stride", None)
-    if stride is None:
-        raise NotImplementedError(
-            f"PARALLEL.SPATIAL {spatial}: spatial sharding is ported for the EMRTs, SETR, "
-            f"Segmenter, DPT and SegFormer; not for {type(model).__name__} (UperNet, Trans2Seg "
-            f"and FCN: ROADMAP.md queue 1, item 5b)")
+    of ``crop_h`` rows: rows at the sharded region's deepest stride
+    (``model.spatial_stride``: a ResNet's output stride, also FCN's and
+    Trans2Seg's; the patch's 16 for an EMRT-ViT, SETR and the Segmenter; 32
+    for the other EMRTs, DPT's ``process[3]``, SegFormer and UperNet: then
+    also the MixViT's spatial-reduction convs, k = stride = 8, 4, 2 at
+    strides 4 to 16, see only the rank's rows, and every rank's row count
+    is even for Swin's and Focal's 2x2 merges) that ``spatial`` does not
+    divide (DPT's 480^2 yamls: 15 rows at stride 32; UperNet-CSwin's
+    224^2: 7), or a conv's halo there deeper than a rank's rows (the
+    dilation-4 convs of a ResNet at output stride 8 read 4 rows each side:
+    an EMRT's, FCN's or Trans2Seg's)."""
+    stride = model.spatial_stride
     deepest = crop_h // stride
     if crop_h % stride or deepest % spatial:
         raise ValueError(f"PARALLEL.SPATIAL {spatial} does not divide the {crop_h / stride:g} "
@@ -432,29 +436,38 @@ def check_spatial(model, spatial: int, crop_h: int):
 
 
 def shard_model_(model, rank: int, world: int, group):
-    """Give the sharded region of ``model`` (an EMRT; the whole of a SETR,
-    Segmenter, DPT or SegFormer, ``layers.ShardedWhole``) rank ``rank``'s
-    ``SpatialShard`` of ``world`` in place: its convs halo exchange
-    (``layers.HaloConv2d``; a ``Conv2dSame`` by its global padding; not
-    CSwin's LePE conv, which runs over gathered stripes; DPT's
-    ``ConvTranspose2d`` resamples, kernel = stride, stay local), its pools
-    and resizes too (the zoo heads' through ``layers.upsample``), its
-    transformer blocks' attentions take the rank's queries over every
-    rank's keys and values (CSwin, ViT, DeiT, the MixViT; the mask
-    transformer's class tokens replicated), its dropout keeps the rank's
-    rows of the full mask, its BatchNorm over maps takes statistics over
-    the gradient group (data x spatial; ``sync_bn``), and an EMRT gathers
-    and cuts rows at the region's edges. A BatchNorm over vectors
-    (ResNeSt's gate after the global mean) holds the same values on every
-    rank of the group and stays on the data group. Parameters, buffers and
-    keys stay as they are. Returns ``model``."""
+    """Give the sharded region of ``model`` (an EMRT's, Trans2Seg's; the
+    whole of a SETR, Segmenter, DPT, SegFormer, UperNet or FCN,
+    ``layers.ShardedWhole``) rank ``rank``'s ``SpatialShard`` of ``world``
+    in place: its convs halo exchange (``layers.HaloConv2d``; a
+    ``Conv2dSame`` by its global padding; not CSwin's LePE conv, which runs
+    over gathered stripes; DPT's ``ConvTranspose2d`` resamples, kernel =
+    stride, stay local), its pools and resizes too (the zoo heads' through
+    ``layers.upsample``), its transformer blocks' attentions take the rank's
+    queries over every rank's keys and values (CSwin, ViT, DeiT, the MixViT;
+    Swin's and Focal's windows of the rank's rows over the gathered map; the
+    mask transformer's class tokens replicated), its dropout keeps the
+    rank's rows of the full mask, its BatchNorm over maps takes statistics
+    over the gradient group (data x spatial; ``sync_bn``), and an EMRT or
+    Trans2Seg gathers and cuts rows at the region's edges. Two kinds of
+    module of the region hold the same values on every rank of the group
+    and stay on the data group: a BatchNorm over vectors (ResNeSt's gate
+    after the global mean), and a module whose ``spatial_replicated`` is
+    true, with its children (the UperHead's pyramid-pooling bins, over its
+    gathered top map), which is left as it is. Parameters, buffers and keys stay as they are.
+    Returns ``model``."""
     from ..models.layers import HaloConv2d
     if world == 1:
         return model
     shard = SpatialShard(rank, world, group)
     model.spatial = shard
+    whole = set()
     for region in model.spatial_region():
-        for m in region.modules():
+        for m in region.modules():                  # a module before its children
+            if getattr(m, "spatial_replicated", False):
+                whole.update(id(sub) for sub in m.modules())
+            if id(m) in whole:
+                continue
             if type(m) is nn.Conv2d:
                 m.__class__ = HaloConv2d
             if hasattr(m, "spatial"):

@@ -37,7 +37,8 @@ Tensor parallelism: ``torchrun --nproc_per_node 4 -m emrt_tpu_torch.train
 
 With PARALLEL.SPATIAL = S > 1 (an EMRT with any backbone: ResNet,
 ResNeXt, ResNeSt, HRNet, CSwin, ViT or SegFormer-B4; of the zoo SETR,
-Segmenter, DPT and SegFormer, sharded whole; not UperNet, Trans2Seg or FCN;
+Segmenter, DPT, SegFormer, UperNet with Swin, CSwin or Focal and FCN,
+sharded whole, and Trans2Seg, whose transformer runs whole on every rank;
 ``parallel.check_parallel``) the ranks are laid out as DATA x MODEL x S, as
 the JAX package places the batch on ``spatial_batch_sharding``: the S ranks
 of a spatial group load their data rank's rows and each trains on its block
@@ -46,7 +47,11 @@ exchanges in the sharded region, the keys and values of a transformer
 backbone's attentions gathered for the rank's queries, ViT's cls token on
 spatial rank 0 alone, the maps gathered for the deformable transformer;
 the zoo heads' resizes over the rank's rows with a halo row, DPT's readout
-of rank 0's cls token, the mask transformer's class tokens replicated).
+of rank 0's cls token, the mask transformer's class tokens replicated,
+Swin's and Focal's windows of the rank's rows over the gathered map, the
+UperHead's pyramid pooling over its gathered top map, Trans2Seg's
+transformer over the gathered c4; Trans2Seg's DDP looks for unused
+parameters, sharded or not).
 DDP, the sharded region's
 BatchNorm and the losses' count (OHEM's k-th probability too) run over the
 gradient group (data x spatial of equal model rank), the logged loss is

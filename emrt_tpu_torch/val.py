@@ -18,8 +18,8 @@ evaluation is sharded over the data ranks, as ``train``'s evaluation runs
 (the JAX ``val.py:53-61`` builds the mesh and leaves the parameters
 replicated: the same numbers): ``torchrun --nproc_per_node 4 -m
 emrt_tpu_torch.val --config <yaml> --model_path best_model.pt PARALLEL.MODEL 2``.
-With PARALLEL.SPATIAL = S > 1 (an EMRT of any backbone; ``check_parallel``
-refuses the zoo) the whole model runs on every rank and the
+With PARALLEL.SPATIAL = S > 1 (an EMRT of any backbone or any zoo model;
+``check_parallel``) the whole model runs on every rank and the
 evaluation is sharded over the data ranks only (the S ranks of a spatial
 group repeat it), as the JAX package evaluates under a spatial mesh.
 """

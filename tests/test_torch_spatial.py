@@ -27,12 +27,14 @@ are in ``test_torch_spatial_ranks.py``):
 - ``check_parallel`` accepts SPATIAL 2 for every EMRT (ResNet, ResNeXt,
   ResNeSt, HRNet, CSwin, ViT, SegFormer-B4) at a 256 crop, with MODEL 2 on
   four ranks and with OHEM, and for the zoo's SETR (MLA, PUP, Naive; also
-  MODEL 2 x SPATIAL 2), Segmenter (ViT-L, DeiT-B), DPT and SegFormer-B5
-  at their yamls' crops; it refuses it for UperNet and Trans2Seg (the next
-  ROADMAP item), where it does not divide the rows at the deepest stride
-  (ViT's 16 rows at stride 16 by 3; the others' 8 rows at stride 32 by 16;
-  DPT's 15 at its 480 crop by 2), and where a dilated conv's halo is
-  deeper than a rank's rows.
+  MODEL 2 x SPATIAL 2), Segmenter (ViT-L, DeiT-B), DPT, SegFormer-B5,
+  UperNet (Swin-T, CSwin-T, Focal-B) and Trans2Seg (also MODEL 2 x SPATIAL
+  2) at their yamls' crops and FCN at output strides 16 and 8; it refuses
+  it where it does not divide the rows at the deepest stride (ViT's and
+  Trans2Seg's 16 rows at stride 16 by 3; the others' 8 rows at stride 32 by
+  16; DPT's 15 at its 480 crop by 2; UperNet-CSwin's 7 at its 224 crop by
+  2), and where a dilated conv's halo is deeper than a rank's rows (an
+  EMRT's or FCN's ResNet at output stride 8).
 
 The train step under dp x sp is in ``test_torch_spatial_train.py``.
 """
@@ -194,11 +196,21 @@ def test_check_parallel_accepts_spatial_for_a_transformer_emrt(spatial, model, e
     (2, 1, "segmenter/segmenter_Large_512x512_160k_ade20k_bs_16.yaml"),
     (2, 1, "segmenter/segmenter_base_distilled_512x512_160k_ade20k_bs_16.yaml"),
     (2, 1, "dpt/DPT_Large_512x512_160k_potsdam_bs_8.yaml"),
-    (2, 1, "segformer/segformer_b5_512x512_160k_ade20k.yaml")],
+    (2, 1, "segformer/segformer_b5_512x512_160k_ade20k.yaml"),
+    (2, 1, "upernet_swin/upernet_swin_tiny_patch4_windown7_512x512_160k_potsdam.yaml"),
+    (2, 1, "upernet_cswin/upernet_cswin_tiny_patch4_512x512_160k_potsdam.yaml"),
+    (2, 1, "upernet_focal/upernet_focal_base_patch4_windown7_512x512_160k_potsdam.yaml"),
+    (2, 1, "trans2seg/Trans2Seg_medium_256x256_160k_potsdam.yaml"),
+    (2, 2, "trans2seg/Trans2Seg_medium_256x256_160k_potsdam.yaml"),
+    (2, 1, ("resnet50c", 16, "FCN")), (2, 1, ("resnet50c", 8, "FCN"))],
     ids=["setr-pup", "setr-mla", "setr-naive-s4", "setr-tp-x-sp", "segmenter-vit",
-         "segmenter-deit", "dpt", "segformer"])
+         "segmenter-deit", "dpt", "segformer", "upernet-swin", "upernet-cswin", "upernet-focal",
+         "trans2seg", "trans2seg-tp-x-sp", "fcn-os16", "fcn-os8"])
 def test_check_parallel_accepts_spatial_for_a_global_attention_zoo_model(spatial, model, yaml):
-    cfg, meta = _meta_zoo_model(yaml)
+    """Every zoo model: a yaml at its own crop, or FCN (no yaml names it)
+    over the flagship's ResNet yaml at an output stride."""
+    cfg, meta = _meta_zoo_model(yaml) if isinstance(yaml, str) else (_config(),
+                                                                    _meta_model(*yaml))
     cfg.PARALLEL.SPATIAL, cfg.PARALLEL.MODEL = spatial, model
     check_parallel(cfg, 2 * spatial * model, meta)
 
@@ -210,10 +222,10 @@ def test_check_parallel_accepts_spatial_for_a_global_attention_zoo_model(spatial
      "SPATIAL 3 does not divide the 16 rows of a 256-row crop at output stride 16"),
     ({"SPATIAL": 16}, 16, ("segformer_b4", 32, None), ValueError,
      "SPATIAL 16 does not divide the 8 rows of a 256-row crop at output stride 32"),
-    ({"SPATIAL": 2}, 2, "upernet_swin/upernet_swin_tiny_patch4_windown7_512x512_160k_potsdam.yaml",
-     NotImplementedError, "not for UperNet .*ROADMAP.md queue 1, item 5b"),
-    ({"SPATIAL": 2}, 2, "trans2seg/Trans2Seg_medium_256x256_160k_potsdam.yaml",
-     NotImplementedError, "not for Trans2Seg .*ROADMAP.md queue 1, item 5b"),
+    ({"SPATIAL": 2}, 2, "upernet_cswin/upernet_cswin_tiny_patch4_224x224_160k_potsdam.yaml",
+     ValueError, "SPATIAL 2 does not divide the 7 rows of a 224-row crop at output stride 32"),
+    ({"SPATIAL": 3}, 3, "trans2seg/Trans2Seg_medium_256x256_160k_potsdam.yaml", ValueError,
+     "SPATIAL 3 does not divide the 16 rows of a 256-row crop at output stride 16"),
     ({"SPATIAL": 2}, 2, "dpt/DPT_Large_480x480_160k_ade20k.yaml", ValueError,
      "SPATIAL 2 does not divide the 15 rows of a 480-row crop at output stride 32"),
     ({"SPATIAL": 16}, 16, ("resnet50", 32, None), ValueError,
@@ -221,11 +233,13 @@ def test_check_parallel_accepts_spatial_for_a_global_attention_zoo_model(spatial
     ({"SPATIAL": 3}, 3, ("resnet50", 16, None), ValueError, "does not divide the 16 rows"),
     ({"SPATIAL": 16}, 16, ("resnet50", 8, None), ValueError,
      "the 2 rows a rank holds at output stride 8 are fewer than the halo of its dilation-4"),
+    ({"SPATIAL": 16}, 16, ("resnet50c", 8, "FCN"), ValueError,
+     "the 2 rows a rank holds at output stride 8 are fewer than the halo of its dilation-4"),
     ({"SPATIAL": 2}, 3, None, ValueError, "PARALLEL.SPATIAL 2 x PARALLEL.MODEL 1 does not "
                                           "divide the 3"),
     ({"SPATIAL": 2, "DATA": 2}, 2, None, ValueError, "use -1 or 1"),
 ], ids=["cswin", "vit", "segformer_b4", "zoo", "trans2seg", "dpt-480", "os32-rows",
-        "os16-rows", "os8-halo", "world", "data"])
+        "os16-rows", "os8-halo", "fcn-os8-halo", "world", "data"])
 def test_check_parallel_refuses_what_spatial_cannot_split(overrides, world, model, exc,
                                                           match):
     cfg = _config(**overrides)

@@ -318,7 +318,12 @@ def grid_step_rank(rank, world, t, s, kind, state_path, image, label, dropout, f
     patches' (no ``tail``: each class then counts once a rank); "resize
     over own rows", the heads' resizes over the rank's rows alone
     (``upsample_rows`` as a plain ``resize_bilinear``, which clamps at the
-    rank's edges)."""
+    rank's edges); "windows over own rows", Swin's windows over a map of
+    the rank's own rows and zeros for the others' (no neighbour rows and no
+    wrap of spatial rank 0's first rows into the last window row); "psp over
+    own rows", the UperHead's pyramid-pooling bins pooled over the rank's
+    rows and resized to them; "decoder over own tokens", Trans2Seg's
+    decoder reading the rank's tokens and zeros for the others'."""
     import torch.distributed as dist
     from torch.nn.parallel import DistributedDataParallel
 
@@ -425,6 +430,30 @@ def _zoo_fault(model, fault):
         for m in model.decoder.layers.modules():
             if isinstance(m, Attention):
                 m.tail = 0
+    elif fault == "windows over own rows":      # UperNet-Swin's only gathers along dim 1
+        gather = SpatialShard.gather_rows
+
+        def alone(self, x, dim=2, lead=0):
+            if dim % x.dim() != 1:
+                return gather(self, x, dim, lead)
+            return torch.cat([x if r == self.rank else torch.zeros_like(x)
+                              for r in range(self.world)], 1)
+        patches.enter_context(mock.patch.object(SpatialShard, "gather_rows", alone))
+    elif fault == "psp over own rows":          # UperNet's only gather and cut along dim 2
+        gather = SpatialShard.gather_rows
+        patches.enter_context(mock.patch.object(
+            SpatialShard, "gather_rows", lambda self, x, dim=2, lead=0: (
+                x if dim % x.dim() == 2 else gather(self, x, dim, lead))))
+        patches.enter_context(mock.patch.object(SpatialShard, "own_rows", lambda self, x: x))
+    elif fault == "decoder over own tokens":
+        decoder, shard = model.transformer_decoder, model.spatial
+
+        def own_tokens(feat):
+            per = feat.shape[1] // shard.world
+            keep = torch.zeros_like(feat[:1, :, :1])
+            keep[:, shard.rank * per:(shard.rank + 1) * per] = 1
+            return type(decoder).forward(decoder, feat * keep)
+        patches.enter_context(mock.patch.object(decoder, "forward", own_tokens))
     return patches
 
 

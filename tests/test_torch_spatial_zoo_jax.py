@@ -4,9 +4,10 @@ global-attention models (the ranks' halves are in
 model=1, spatial=2)`` mesh with ``spatial_batch_sharding`` on two of the
 host devices (GSPMD partitions the whole model over the image rows;
 dropout off), and the port's dp1 x sp2 step on two gloo ranks, from the
-same bridged weights (``test_torch_zoo.bridged``: the narrow SETR-MLA, DPT
-with the ``project`` readout, the DeiT Segmenter with the mask transformer
-and SegFormer, crop 64) and batch (``test_torch_spatial_train._batch``),
+same bridged weights (``test_torch_zoo.bridged`` at crop 64: the narrow
+SETR-MLA, DPT with the ``project`` readout, the DeiT Segmenter with the
+mask transformer, SegFormer, UperNet with Swin and with Focal, Trans2Seg
+and FCN) and batch (``test_torch_spatial_train._batch``),
 with the flagship config's solver and loss: the loss within 1e-5 relative.
 """
 from __future__ import annotations
@@ -37,12 +38,21 @@ from test_torch_zoo import FAMILIES, bridged, jax_model  # noqa: E402
 from emrt_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 
 torch.set_num_threads(1)
-JAX_ZOO = ("setr_mla", "dpt_project", "segmenter_deit_mask", "segformer")
+JAX_ZOO = ("setr_mla", "dpt_project", "segmenter_deit_mask", "segformer", "upernet_swin",
+           "upernet_focal_a", "trans2seg", "fcn")
+CROP = 64
 
 
 def _spec(family):
     _, _, _, _, cls, shared, _, torch_kw = FAMILIES[family]
-    return cls, {**shared, **torch_kw}
+    kw = {**shared, **torch_kw}
+    if "img_size" in kw:
+        kw["img_size"] = (CROP, CROP)
+    return cls, kw
+
+
+def _bridged(family):
+    return bridged(family, CROP)
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,7 +64,7 @@ def _port_losses(tmp):
     calls = []
     for family in JAX_ZOO:
         path = f"{tmp}/{family}.pt"
-        torch.save(bridged(family)[2], path)
+        torch.save(_bridged(family)[2], path)
         calls.append((grid_step_rank, (1, 2, _spec(family), path, image, label, 0.0)))
     ranks = run_ranks(calls_rank, 2, args=(calls,), timeout=600)
     return {f: [r[i]["loss"] for r in ranks] for i, f in enumerate(JAX_ZOO)}
@@ -75,7 +85,7 @@ def _free_the_steps():
 def test_the_jax_spatial_step_and_the_ports_dp1_x_sp2_step_agree(family, monkeypatch,
                                                                  tmp_path_factory):
     image, label = _batch(2)
-    variables = bridged(family)[1]
+    variables = _bridged(family)[1]
     params, stats = variables["params"], variables["batch_stats"]
     monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
     mesh = create_mesh(data=1, model=1, spatial=2, devices=jax.devices()[:2])

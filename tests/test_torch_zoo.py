@@ -142,9 +142,11 @@ def torch_model(family):
 
 
 @functools.lru_cache(maxsize=2)
-def bridged(family):
-    """(pd dict, flax variables, the port's state dict) of a family."""
-    name, encoder, hw = FAMILIES[family][:3]
+def bridged(family, hw=None):
+    """(pd dict, flax variables, the port's state dict) of a family, at its
+    input size or ``hw`` (Swin's and Focal's tables follow the size)."""
+    name, encoder, size = FAMILIES[family][:3]
+    hw = hw or size
     shapes = jax.eval_shape(jax_model(family).init, jax.random.key(0),
                             jnp.zeros((1, hw, hw, 3), jnp.float32))
     zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
