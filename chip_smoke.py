@@ -237,6 +237,30 @@ sp2 rank (ms, peak memory, the activations of ``encoder``, ``decoder`` and
 ``aux_decoder``). Phases 11, 12 and 13 run their (a) and (d) rank steps
 in one start of the two ranks, their (b) steps in one start of the four,
 and their (d) one-process steps in one process (``sp_phases``).
+Phase 14 trains at one image a process (a 1 x 1 pooled map, a [1, c]
+vector: one value a channel for its BatchNorm, which takes flax's form)
+and holds bf16 convergence. (a) Three bf16 train steps of the flagship at
+batch 1 through the kernels: finite losses, 6 / 6 launches a step, the
+pyramid pooling's pool-scale-1 branch's running variance exactly 0.9 x the
+one before each step, its conv's and BatchNorm weight's gradients a tensor
+of zeros; (b) ``train.main`` on
+upernet_cswin_small_patch4_512x512_160k_ade20k.yaml at full width and its
+own DATA.BATCH_SIZE of 1, two iterations with an eval; (c)
+tests/test_convergence.py in bf16 through K1-K3: the ResNet-18 EMRT, 4
+classes, crop 32, 80 Adam steps, held to the JAX test's bounds (the last 5
+losses below 0.6 x the first 5, held-out pixel accuracy above 0.5, mIoU
+above 0.3); (d) the flagship's float32 dp1 x sp2 step at one image against
+one process's with phase 9 (a)'s checks, in ``sp_phases``' start of the
+two ranks. Phases 1 and 3a also hold the kernels at bs 1 (BS1_SHAPES: the
+flagship's encoder and decoder calls and the 1 x 1024^2 encoder call of a
+spatially sharded EMRT-R50, three levels 128^2 / 64^2 / 32^2, Lq 21,504),
+and ``time_fwd`` / ``time_bwd`` time them.
+A start of ranks costs 15-25 s, so they share their starts: phase 7's
+start of the two ranks over gloo also runs phase 8's dp1 x tp2 step ((a),
+(b), (d)), and phases 9 (a), (d), 10 (a), (b), (e), 11-13 and 14 (d) run in
+``sp_phases``' starts (one of two ranks, one process, one of four), after
+phases 9 (c) and 10 (d); each memory step (phases 9 (d), 10 (e), 11-13
+(d)) is timed once (SP_TIMED) after its warm-up.
 
 Any failed check raises, and the script then exits non-zero without the
 final line. ``python3 chip_smoke.py --tp-step`` runs phase 0 and phase 8's
@@ -248,7 +272,8 @@ and 13 at full depth,
 and phase 10 (b) from each seed of NORM_SEEDS (every reading printed
 before a check fails),
 ``--train-step`` phase 0 and phase 3c's timing of one process's bf16 bs-8
-train step alone; none prints the final lines. It prints its own time, then a JSON object describing each
+train step alone, ``--batch1`` phase 0, phases 1 and 3a at BS1_SHAPES
+alone and phase 14; none prints the final lines. It prints its own time, then a JSON object describing each
 kernel on the second-to-last line; the last line is {"ok": true, "device":
 {...}}. Nothing here imports JAX.
 """
@@ -293,6 +318,14 @@ SHAPES = (("encoder 256^2", LEVELS_256, 1344),
           ("decoder 448^2", LEVELS_448, 110),
           ("encoder 48^2x3", LEVELS_VIT768, 6912),
           ("decoder 48^2x3", LEVELS_VIT768, 110))
+# one image a process (phase 14): the flagship's encoder and decoder calls at
+# bs 1, and the encoder call of a spatially sharded EMRT-R50 at one 1024^2
+# image (the deformable encoder runs whole on every rank): 8 (b, h), so the
+# plans split a (b, h) over more blocks than at any other call
+LEVELS_1024 = ((128, 128), (64, 64), (32, 32))
+BS1_SHAPES = (("encoder 256^2 bs 1", LEVELS_256, 1344),
+              ("decoder 256^2 bs 1", LEVELS_256, 110),
+              ("encoder 1024^2 bs 1", LEVELS_1024, 21504))
 # tensor parallelism (phase 8): a rank of a model group of T runs the
 # flagship's calls at 8 / T heads, T = 2 and 4; and the HRNet EMRT's (three
 # 32^2 levels, SHAPES[5:7]) at 4 heads
@@ -479,21 +512,28 @@ def _check_fwd(tag, value, levels, loc, attn, loc_set, plan=None):
     return err
 
 
-def phase1():
+BS1_CASES = tuple((*shape, 1, HEADS) for shape in BS1_SHAPES)
+
+
+def phase1(cases=None):
     """K1 against its plain version at every SHAPES call (bs 32, and bs 8
     where the plan splits), at the TP ranks' head counts (TP_SHAPES, bs 32
-    and 8), and the wrappers' refusals."""
+    and 8), at BS1_SHAPES (bs 1; with the other staging too), and the
+    wrappers' refusals; at ``cases`` ((name, levels, Lq, bs, heads)) alone
+    where given."""
     import torch
     from emrt_tpu_torch.ops import deformable_cuda
     from emrt_tpu_torch.ops.deformable import deformable_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, levels, len_q, bs, heads in [(*shape, BS, HEADS) for shape in SHAPES] + [
+    if cases is None:
+        cases = [(*shape, BS, HEADS) for shape in SHAPES] + [
             ("encoder 256^2 bs 8", LEVELS_256, 1344, TRAIN_BS, HEADS),
             ("decoder 256^2 bs 8", LEVELS_256, 110, TRAIN_BS, HEADS)] + [
             (name if bs == BS else f"{name} bs 8", levels, len_q, bs, heads)
-            for bs in (BS, TRAIN_BS) for name, levels, len_q, heads in TP_SHAPES]:
+            for bs in (BS, TRAIN_BS) for name, levels, len_q, heads in TP_SHAPES] + list(BS1_CASES)
+    for name, levels, len_q, bs, heads in cases:
         for dtype in (torch.float32, torch.bfloat16):
             plan = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, heads, len_q, n_sms)
             print(f"phase 1: {name} bs {bs} {str(dtype)[6:]}: plan {plan}")
@@ -548,7 +588,14 @@ def fwd_device_us(fn, reps: int = 20) -> float:
     return float("nan")
 
 
-def time_fwd():
+def _timed_cases():
+    """(bs, name, levels, Lq, heads) of every call ``time_fwd`` and
+    ``time_bwd`` time."""
+    return ([(bs, *shape, HEADS) for bs in (BS, TRAIN_BS) for shape in SHAPES]
+            + [(BS, *shape) for shape in TP_SHAPES] + [(1, *shape, HEADS) for shape in BS1_SHAPES])
+
+
+def time_fwd(cases=None):
     """Times of the whole ``ms_deform_attn_fwd`` (median of 10 CUDA-event
     calls) and of the plain version at every SHAPES call, at bs 32 and at the
     yamls' bs 8, in both dtypes, on random locations and on the grid, with
@@ -559,7 +606,8 @@ def time_fwd():
     the plan stages levels, the levels that fit where it stages none). The
     plan's choices are judged by device time: the decoder-sized calls are
     mostly host time, which the plan does not change. The TP ranks' calls
-    (TP_SHAPES) are timed at bs 32.
+    (TP_SHAPES) are timed at bs 32, BS1_SHAPES at bs 1; ``cases`` ((bs,
+    name, levels, Lq, heads)) alone where given.
     Returns {(name, bs, dtype): {"random": ms, ...}}."""
     import torch
     from emrt_tpu_torch.ops import deformable_cuda
@@ -568,8 +616,7 @@ def time_fwd():
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     ms = functools.partial(cuda_ms, reps=10, warmup=2)
     times = {}
-    cases = [(bs, *shape, HEADS) for bs in (BS, TRAIN_BS) for shape in SHAPES]
-    for bs, name, levels, len_q, heads in cases + [(BS, *shape) for shape in TP_SHAPES]:
+    for bs, name, levels, len_q, heads in cases or _timed_cases():
         for dtype in (torch.float32, torch.bfloat16):
             plan = deformable_cuda.fwd_plan(levels, HEAD_DIM, dtype, bs, heads, len_q, n_sms)
             plans = {"plan": plan}
@@ -730,19 +777,25 @@ def _check_bwd(tag, value, levels, loc, attn, grad_out, loc_set):
     return max_err
 
 
-def phase3a():
-    """The fused backward against the plain version's autograd; its times."""
+def phase3a(cases=None):
+    """The fused backward against the plain version's autograd; its times;
+    at ``cases`` ((name, levels, Lq, bs, heads)) alone where given."""
     import torch
     from emrt_tpu_torch.ops import deformable_cuda
     gen = torch.Generator(device="cuda").manual_seed(1)
     max_err = 0.0
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     # bs 8 (the yamls' batch): 64 (b, h) on 132 SMs, so the plan splits them;
-    # a TP rank's 4 or 2 heads split them more (bs 8 at 2 heads: 8 ways)
-    for name, levels, len_q, bs, heads in [(*shape, BS, HEADS) for shape in SHAPES] + [
+    # a TP rank's 4 or 2 heads split them more (bs 8 at 2 heads: 8 ways);
+    # bs 1 (BS1_SHAPES): 8 (b, h), the encoder calls split over 6 and 16
+    timed = None if cases is None else [(bs, name, levels, len_q, heads)
+                                        for name, levels, len_q, bs, heads in cases]
+    if cases is None:
+        cases = [(*shape, BS, HEADS) for shape in SHAPES] + [
             ("encoder 256^2 bs 8", LEVELS_256, 1344, TRAIN_BS, HEADS)] + [
             (name if bs == BS else f"{name} bs 8", levels, len_q, bs, heads)
-            for bs in (BS, TRAIN_BS) for name, levels, len_q, heads in TP_SHAPES]:
+            for bs in (BS, TRAIN_BS) for name, levels, len_q, heads in TP_SHAPES] + list(BS1_CASES)
+    for name, levels, len_q, bs, heads in cases:
         plan = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, heads, len_q, n_sms)
         print(f"phase 3a: {name} bs {bs}: plan {plan}")
         for dtype in (torch.float32, torch.bfloat16):
@@ -752,10 +805,10 @@ def phase3a():
                                        device="cuda").to(dtype)
                 max_err = max(max_err, _check_bwd(name, value, levels, loc, attn, grad_out,
                                                   loc_set))
-    return time_bwd(), max_err
+    return time_bwd(cases=timed), max_err
 
 
-def time_bwd(plain=True, other_split=True):
+def time_bwd(plain=True, other_split=True, cases=None):
     """Times of the whole ``ms_deform_attn_bwd`` (any zero-fill and cast
     included; median of 10 CUDA-event calls) at every SHAPES call, at bs 32
     and at the yamls' bs 8, in both dtypes, on random locations and on the
@@ -765,7 +818,8 @@ def time_bwd(plain=True, other_split=True):
     two timed in turns after one timing thrown away, each the mean of its
     two medians).
     Another commit's package that lacks the plan is timed with both off.
-    The TP ranks' calls (TP_SHAPES) are timed at bs 32.
+    The TP ranks' calls (TP_SHAPES) are timed at bs 32, BS1_SHAPES at bs 1;
+    ``cases`` ((bs, name, levels, Lq, heads)) alone where given.
     Returns {(name, bs, dtype): {"random": ms, ...}}."""
     import torch
     from emrt_tpu_torch.ops import deformable_cuda
@@ -774,8 +828,7 @@ def time_bwd(plain=True, other_split=True):
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     ms = functools.partial(cuda_ms, reps=10, warmup=2)
     times = {}
-    cases = [(bs, *shape, HEADS) for bs in (BS, TRAIN_BS) for shape in SHAPES]
-    for bs, name, levels, len_q, heads in cases + [(BS, *shape) for shape in TP_SHAPES]:
+    for bs, name, levels, len_q, heads in cases or _timed_cases():
         other = None
         if other_split and bs * heads < n_sms:
             plan = deformable_cuda.bwd_plan(levels, HEAD_DIM, bs, heads, len_q, n_sms)
@@ -1743,8 +1796,10 @@ def _dp_step(model, cfg, device):
     return make_train_step(ddp, get_loss_function(cfg), optimizer)
 
 
-def dp_reference(path, dropout=0.0, cfg=None, seed=0, control=False, dtype="float32"):
-    """(a)'s global batch of 8 and one process's float32 (or ``dtype``) step
+def dp_reference(path, dropout=0.0, cfg=None, seed=0, control=False, dtype="float32",
+                 images=DP_WORLD * DP_BS):
+    """(a)'s global batch of 8 (its first ``images``) and one process's
+    float32 (or ``dtype``) step
     on it, which ``grid_step_rank`` then runs in (dropout
     ``dropout``, torch seeded with SP_SEED + ``seed`` before it; BatchNorm on
     batch statistics, through the kernels) of the flagship (or of ``cfg``'s
@@ -1770,11 +1825,11 @@ def dp_reference(path, dropout=0.0, cfg=None, seed=0, control=False, dtype="floa
     model.to(getattr(torch, dtype))
     _set_kernel_and_dropout(model, dropout=dropout)
     gen = torch.Generator(device="cuda").manual_seed(7 + seed)
-    n, (h, w) = DP_WORLD * DP_BS, cfg.DATA.CROP_SIZE
+    n, (h, w) = images, cfg.DATA.CROP_SIZE
     half = cfg.DATA.NUM_CLASSES // 2
     labels = torch.randint(0, half, (n, h, w), generator=gen, device="cuda")
     labels[DP_BS:] += half
-    share = torch.tensor([0.0, 0.1, 0.0, 0.2, 0.9, 1.0, 0.8, 0.9], device="cuda")
+    share = torch.tensor([0.0, 0.1, 0.0, 0.2, 0.9, 1.0, 0.8, 0.9], device="cuda")[:n]
     ignored = torch.rand((n, h, w), generator=gen, device="cuda") < share[:, None, None]
     images = torch.randn((n, 3, h, w), generator=gen, device="cuda")
     images[DP_BS:] = 3 * images[DP_BS:] + 2
@@ -1915,20 +1970,23 @@ def phase7_rank(rank, world, devices, reference, save_dir):
     return out
 
 
-def phase7_leg(card, backend, devices, reference, save_dir):
+def phase7_leg(card, backend, devices, reference, save_dir, ranks=None):
     """Phase 7 over ``backend`` with rank r on ``devices[r]``: the checks of
-    (a)-(d) and single-process ``val.main`` on the DP run's best_model.pt.
-    Returns the kernels' launches in the two ranks' ``train.main`` runs."""
+    (a)-(d) (``phase7_rank``'s results ``ranks``, or of a start of the ranks
+    of its own) and single-process ``val.main`` on the DP run's
+    best_model.pt. Returns the kernels' launches in the two ranks'
+    ``train.main`` runs."""
     import json
 
     from emrt_tpu_torch.parallel.launch import run_ranks
     from emrt_tpu_torch.val import main as val_main
-    t0 = time.perf_counter()
-    ranks = run_ranks(phase7_rank, DP_WORLD, args=(devices, reference, save_dir),
-                      backend=backend, timeout=900)
-    save_dir = Path(save_dir)
     leg = f"phase 7 ({backend}, {DP_WORLD} ranks on {', '.join(devices)})"
-    print(f"{leg}: the ranks ran in {time.perf_counter() - t0:.1f} s")
+    if ranks is None:
+        t0 = time.perf_counter()
+        ranks = run_ranks(phase7_rank, DP_WORLD, args=(devices, reference, save_dir),
+                          backend=backend, timeout=900)
+        print(f"{leg}: the ranks ran in {time.perf_counter() - t0:.1f} s")
+    save_dir = Path(save_dir)
     for r, out in enumerate(ranks):
         print(f"{leg}: rank {r} (a) float32 DP step of {DP_BS} rows: loss {out['loss']:.9g} "
               f"against one process's {out['loss_ref']:.9g} on all {DP_WORLD * DP_BS} (rtol "
@@ -2037,11 +2095,14 @@ def phase7(card):
     """Data parallelism (``emrt_tpu_torch.parallel``): two ranks on the one
     card over gloo (NCCL refuses two ranks on one device), then over NCCL
     with a card a rank where there are two; then the CLIs under torchrun.
+    The gloo start of the two ranks also runs phase 8's dp1 x tp2 step
+    (``tp_step_rank``) on the same reference: a start costs 15-25 s.
     Returns the forward and backward launches of the ranks' ``train.main``
-    runs."""
+    runs and the dp1 x tp2 step's results for ``phase8``."""
     import tempfile
 
     import torch
+    from emrt_tpu_torch.parallel.launch import run_ranks
     torch.cuda.empty_cache()
     launches = (0, 0)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2050,14 +2111,24 @@ def phase7(card):
         if torch.cuda.device_count() >= DP_WORLD:
             legs.append(("nccl", [f"cuda:{r}" for r in range(DP_WORLD)]))
         for backend, devices in legs:
-            got = phase7_leg(card, backend, devices, reference, str(Path(tmp) / backend))
+            save_dir, ranks = str(Path(tmp) / backend), None
+            if backend == "gloo":
+                t0 = time.perf_counter()
+                both = run_ranks(calls_rank, DP_WORLD, args=(
+                    [(phase7_rank, (devices, reference, save_dir)),
+                     (tp_step_rank, (devices[:TP_WORLD], reference))],), backend=backend,
+                    timeout=1200)
+                ranks, tp_ranks = [r[0] for r in both], [r[1] for r in both]
+                print(f"phases 7 and 8 (a) (gloo, {DP_WORLD} ranks on {', '.join(devices)}): the "
+                      f"ranks ran in {time.perf_counter() - t0:.1f} s")
+            got = phase7_leg(card, backend, devices, reference, save_dir, ranks)
             launches = tuple(a + b for a, b in zip(launches, got))
         phase7_torchrun(str(Path(tmp) / "torchrun"))
     if torch.cuda.device_count() < DP_WORLD:
         print(f"phase 7: the NCCL leg was not run: {torch.cuda.device_count()} card(s), "
               f"it needs {DP_WORLD}")
     print(f"phase 7: K1 / K2-K3 launches in the ranks' train.main runs: {launches}")
-    return launches
+    return launches, tp_ranks
 
 
 # ---------------------------------------------------------------- phase 8: TP
@@ -2311,16 +2382,19 @@ def tp_train_rank(rank, world, save_dir):
             "finite": bool(np.isfinite(first["losses"] + second["losses"]).all())}
 
 
-def phase8_step(card, backend, devices, reference):
+def phase8_step(card, backend, devices, reference, ranks=None):
     """(a), (b) and (d) over ``backend``: dp1 x tp2 with rank r on
-    ``devices[r]``. Returns the kernels' launches in the ranks' runs."""
+    ``devices[r]`` (``tp_step_rank``'s results ``ranks``, or of a start of
+    the ranks of its own). Returns the kernels' launches in the ranks'
+    runs."""
     from emrt_tpu_torch.parallel.launch import run_ranks
-    t0 = time.perf_counter()
-    ranks = run_ranks(tp_step_rank, TP_WORLD, args=(devices[:TP_WORLD], reference),
-                      backend=backend, timeout=600)
     leg = f"phase 8 ({backend})"
-    print(f"{leg}: dp1 x tp{TP_WORLD} on {', '.join(devices[:TP_WORLD])}: the ranks ran in "
-          f"{time.perf_counter() - t0:.1f} s")
+    if ranks is None:
+        t0 = time.perf_counter()
+        ranks = run_ranks(tp_step_rank, TP_WORLD, args=(devices[:TP_WORLD], reference),
+                          backend=backend, timeout=600)
+        print(f"{leg}: dp1 x tp{TP_WORLD} on {', '.join(devices[:TP_WORLD])}: the ranks ran in "
+              f"{time.perf_counter() - t0:.1f} s")
     for r, out in enumerate(ranks):
         print(f"{leg}: rank {r} (a) float32 dp1 x tp{TP_WORLD} step of 8 rows: loss "
               f"{out['loss']:.9g} against one process's {out['loss_ref']:.9g} (rtol "
@@ -2352,18 +2426,18 @@ def phase8_step(card, backend, devices, reference):
     return [sum(out["launches_a"][i] for out in ranks) for i in range(2)]
 
 
-def phase8_leg(card, backend, devices, reference, save_dir):
-    """(a)-(d) over ``backend``: dp1 x tp2 with rank r on ``devices[r]``,
-    then, where there are four devices, dp2 x tp2 ``train.main`` and
-    single-process ``val.main`` on its best_model.pt. Returns the kernels'
-    launches in the ranks' runs."""
+def phase8_leg(card, backend, devices, reference, save_dir, step_ranks=None):
+    """(a)-(d) over ``backend``: dp1 x tp2 with rank r on ``devices[r]``
+    (``phase8_step``, given ``step_ranks``), then, where there are four
+    devices, dp2 x tp2 ``train.main`` and single-process ``val.main`` on its
+    best_model.pt. Returns the kernels' launches in the ranks' runs."""
     import json
 
     import torch
     from emrt_tpu_torch.models import get_model
     from emrt_tpu_torch.parallel.launch import run_ranks
     from emrt_tpu_torch.val import main as val_main
-    launches = phase8_step(card, backend, devices, reference)
+    launches = phase8_step(card, backend, devices, reference, step_ranks)
     leg = f"phase 8 ({backend})"
     n = TP_GRID[0] * TP_GRID[1]
     if len(devices) < n:
@@ -2446,12 +2520,14 @@ def phase8_torchrun(save_dir):
           f"eval, in {time.perf_counter() - t0:.1f} s: losses {losses}")
 
 
-def phase8(card):
+def phase8(card, gloo_step):
     """Tensor parallelism (``emrt_tpu_torch.parallel.tensor``) on the
-    flagship at full width and depth: dp1 x tp2 and dp2 x tp2 with the ranks
-    on the one card over gloo, over NCCL a card a rank where there are
-    cards enough; then the train CLI under torchrun. Returns the forward
-    and backward launches of the ranks' runs."""
+    flagship at full width and depth: dp1 x tp2 (over gloo on the one card:
+    ``gloo_step``, ``tp_step_rank``'s results from phase 7's start of the
+    ranks) and dp2 x tp2 with the ranks on the one card over gloo, over
+    NCCL a card a rank where there are cards enough; then the train CLI
+    under torchrun. Returns the forward and backward launches of the ranks'
+    runs."""
     import tempfile
 
     import torch
@@ -2459,12 +2535,14 @@ def phase8(card):
     launches = (0, 0)
     n = TP_GRID[0] * TP_GRID[1]
     with tempfile.TemporaryDirectory() as tmp:
-        reference = dp_reference(Path(tmp) / "reference.pt")
         legs = [("gloo", ["cuda:0"] * n)]
+        reference = None
         if torch.cuda.device_count() >= TP_WORLD:
             legs.append(("nccl", [f"cuda:{r}" for r in range(min(n, torch.cuda.device_count()))]))
+            reference = dp_reference(Path(tmp) / "reference.pt")
         for backend, devices in legs:
-            got = phase8_leg(card, backend, devices, reference, str(Path(tmp) / backend))
+            got = phase8_leg(card, backend, devices, reference, str(Path(tmp) / backend),
+                             gloo_step if backend == "gloo" else None)
             launches = tuple(a + b for a, b in zip(launches, got))
         phase8_torchrun(str(Path(tmp) / "torchrun"))
     if torch.cuda.device_count() < TP_WORLD:
@@ -2477,6 +2555,7 @@ def phase8(card):
 # ------------------------------------------------------------- phase 9: SP
 
 SP_WORLD = 2                             # dp1 x sp2: two ranks, 128 image rows each
+SP_FLAGSHIP = "EMRT-R50"                 # the flagship's name in ``sp_phases``
 SP_DROPOUT, SP_SEED = 0.1, 11            # (a): dropout on, torch seeded alike everywhere
 # (a): the gradient norm before the clip against one process's: float32
 # rounding through BatchNorm on batch statistics (a 1e-7 perturbation moved
@@ -2498,7 +2577,7 @@ SP_CALLS = [("bwd", HEADS, 110), ("bwd", HEADS, 1344), ("fwd", HEADS, 110),
             ("fwd", HEADS, 1344)]
 # (d): where activations dominate: 1024^2 crops, 2 a step (bf16, output stride
 # 32, so 2 divides the 32 rows at stride 32)
-SP_LARGE_CROP, SP_LARGE_BS, SP_TIMED = 1024, 2, 3
+SP_LARGE_CROP, SP_LARGE_BS, SP_TIMED = 1024, 2, 1
 # the float32 rank steps held against one process's: one more step timed
 # after the checked one (the ranks share one card over gloo: a smoke figure)
 GRID_TIMED = 1
@@ -2672,7 +2751,7 @@ def grid_step_rank(rank, world, devices, reference, grid, path=str(CONFIG), over
             optimizer.sync.spread = {}
         specs = splits_of(model)
         batch = spatial_rows(model, {k: v.to(device) for k, v in ref["batch"].items()})
-        out["rows"] = tuple(batch["image"].shape[2:])
+        out["rows"], out["images"] = tuple(batch["image"].shape[2:]), batch["image"].shape[0]
         calls = set()
         _record_heads(calls, queries=True)
         torch.manual_seed(ref["dropout_seed"])
@@ -2879,42 +2958,42 @@ def _torchrun_and_val(save_dir, leg, nproc, iters, opts, logged):
           f"val.main gives mIoU {result['miou']}, the run {best}")
 
 
+def phase9_specs(cut):
+    """Phase 9 (a) and (d) over gloo as ``sp_phases`` takes them (``cut``
+    changes nothing): the flagship's dp1 x sp2 step and its bf16 memory
+    step at SP_LARGE_BS x SP_LARGE_CROP^2."""
+    return ([("phase 9 (a)", SP_FLAGSHIP, CONFIG, (), 1344)],
+            [("phase 9 (d)", SP_FLAGSHIP, CONFIG, SP_REGIONS, SP_LARGE_CROP)], [])
+
+
 def phase9(card, torchrun=True):
     """Spatial parallelism (``emrt_tpu_torch.parallel.spatial``) on the
-    flagship at full width and depth: dp1 x sp2 with the ranks on the one
-    card over gloo, over NCCL a card a rank where there are two; then the
-    train CLI under torchrun and ``val.main`` on its checkpoint. Returns the
-    forward and backward launches of the ranks' (a) steps."""
+    flagship at full width and depth: (a), (b), (d) over NCCL a card a rank
+    where there are two (over gloo on the one card they run in
+    ``sp_phases``, ``phase9_specs``); then the train CLI under torchrun and
+    ``val.main`` on its checkpoint."""
     import tempfile
 
     import torch
     torch.cuda.empty_cache()
-    launches = (0, 0)
     with tempfile.TemporaryDirectory() as tmp:
-        reference = dp_reference(Path(tmp) / "reference.pt", dropout=SP_DROPOUT)
-        legs = [("gloo", ["cuda:0"] * SP_WORLD)]
         if torch.cuda.device_count() >= SP_WORLD:
-            legs.append(("nccl", [f"cuda:{r}" for r in range(SP_WORLD)]))
-        for backend, devices in legs:
-            got = phase9_step(backend, devices, reference)
-            launches = tuple(a + b for a, b in zip(launches, got))
-            large_step_memory(card, f"phase 9 ({backend}) (d)", backend, devices)
+            devices = [f"cuda:{r}" for r in range(SP_WORLD)]
+            reference = dp_reference(Path(tmp) / "reference.pt", dropout=SP_DROPOUT)
+            print(f"phase 9 (nccl): K1 / K2-K3 launches in the ranks' (a) steps: "
+                  f"{phase9_step('nccl', devices, reference)}")
+            large_step_memory(card, "phase 9 (nccl) (d)", "nccl", devices)
+        else:
+            print(f"phase 9: the NCCL leg was not run: {torch.cuda.device_count()} card(s), it "
+                  f"needs {SP_WORLD}")
         if torchrun:
             phase9_torchrun(str(Path(tmp) / "torchrun"))
-    if torch.cuda.device_count() < SP_WORLD:
-        print(f"phase 9: the NCCL leg was not run: {torch.cuda.device_count()} card(s), it "
-              f"needs {SP_WORLD}")
-    print(f"phase 9: K1 / K2-K3 launches in the ranks' (a) steps: {launches}")
-    return launches
 
 
 # ------------------------------------------------------- phase 10: TP x SP
 
 TPSP_GRID = (2, 2)                       # (a), (d): dp1 x tp2 x sp2 (model, spatial)
 TPSP_WORLD = TPSP_GRID[0] * TPSP_GRID[1]
-# (a): the kernels' calls of a rank: 4 heads (tp2), the full token counts
-TPSP_CALLS = [("bwd", HEADS // TPSP_GRID[0], 110), ("bwd", HEADS // TPSP_GRID[0], 1344),
-              ("fwd", HEADS // TPSP_GRID[0], 110), ("fwd", HEADS // TPSP_GRID[0], 1344)]
 HRNET_YAML = ROOT / "configs" / "EMRT" / "EMRT_256x256_160k_potsdam_hrnet.yaml"
 # (b): dp1 x sp2 of the other convolutional backbones: (name, yaml, config
 # overrides, the encoder's queries at 256^2, 8 heads)
@@ -2960,7 +3039,8 @@ def report_grid_step(card, what, ranks, grid, calls, seconds=None, strict=True,
                   f"group before the overwrite {out['spread'][1]:.3e} x max ({out['spread'][0]}, "
                   f"tol {TP_SPREAD_TOL}); {out['n_split']} split parameters"
                   if out["n_split"] else "")
-        print(f"{what}: rank {r} {out['dtype']} step of 8 x {out['rows']} rows x columns, "
+        print(f"{what}: rank {r} {out['dtype']} step of {out['images']} x {out['rows']} rows x "
+              f"columns, "
               f"dropout {SP_DROPOUT}: loss {out['loss']:.9g} against one process's "
               f"{out['loss_ref']:.9g} (rtol {DP_LOSS_RTOL}); gradients |grid-one|/|one| (L2) "
               f"{out['grad_rel']:.3e} (tol {TRAIN_BN_GRAD_RTOL}); BatchNorm running statistics "
@@ -2994,12 +3074,14 @@ def report_grid_step(card, what, ranks, grid, calls, seconds=None, strict=True,
 
 def _backbone_reference(tmp, name, path, pairs=(), seed=0):
     """The ``dp_reference`` (dropout SP_DROPOUT, with its control; in float64
-    for SP_FLOAT64's models) of the model at ``path`` with config ``pairs``
-    from ``seed``, made once under ``tmp``; returns its path."""
+    for SP_FLOAT64's models; of one image for SP_ONE_IMAGE) of the model at
+    ``path`` with config ``pairs`` from ``seed``, made once under ``tmp``;
+    returns its path."""
     reference = Path(tmp) / f"{name} seed {seed}.pt"
     if not reference.exists():
         dp_reference(reference, dropout=SP_DROPOUT, cfg=_variant_config(path, pairs), seed=seed,
-                     control=True, dtype="float64" if name in SP_FLOAT64 else "float32")
+                     control=True, dtype="float64" if name in SP_FLOAT64 else "float32",
+                     images=1 if name == SP_ONE_IMAGE else DP_WORLD * DP_BS)
     return str(reference)
 
 
@@ -3104,41 +3186,35 @@ def phase10_torchrun(save_dir):
                       [f"model axis = {TPSP_GRID[0]}", f"spatial axis = {TPSP_GRID[1]}"])
 
 
-def phase10(card, torchrun=True):
-    """Tensor x spatial parallelism on the flagship, and spatial parallelism
-    of the HRNet and ResNeSt EMRTs, at full width and depth with seeded
-    weights, the ranks on the one card over gloo: (a) dp1 x tp2 x sp2 and
-    (b) dp1 x sp2 steps against one process's, (c) their kernels' launches,
-    (d) the train CLI under torchrun and ``val.main`` on its checkpoint,
-    (e) the HRNet EMRT's peak memory a rank. Returns the forward and
-    backward launches of the ranks' steps and (e)'s ratio."""
+def phase10_specs(cut):
+    """Phase 10's rank steps as ``sp_phases`` takes them (``cut`` changes
+    nothing): (b) the dp1 x sp2 steps of SP_BACKBONES, (e) the HRNet EMRT's
+    memory step, (a) the flagship's dp1 x tp2 x sp2 step."""
+    return ([("phase 10 (b)", name, path, tuple(overrides.items()), len_q)
+             for name, path, overrides, len_q in SP_BACKBONES],
+            [("phase 10 (e)", "HRNet-W48 EMRT", HRNET_YAML, HRNET_REGIONS, SP_LARGE_CROP)],
+            [("phase 10 (a)", SP_FLAGSHIP, CONFIG, (), 1344, TP_SPLIT)])
+
+
+def phase10():
+    """Phase 10 (d) in a temporary directory: the train CLI under torchrun
+    with PARALLEL.MODEL 2 PARALLEL.SPATIAL 2 and ``val.main`` on its
+    checkpoint. Its rank steps, (a)-(c) and (e), run in ``sp_phases``
+    (``phase10_specs``)."""
     import tempfile
 
     import torch
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        reference = dp_reference(Path(tmp) / "flagship.pt", dropout=SP_DROPOUT, control=True)
-        launches, _ = phase10_step(card, "phase 10 (a)", reference, TPSP_GRID, TPSP_CALLS)
-        got, ratios = sharded_steps(
-            card, "phase 10 (b), (e)", tmp,
-            [("phase 10 (b)", name, path, tuple(overrides.items()), len_q)
-             for name, path, overrides, len_q in SP_BACKBONES],
-            [("phase 10 (e)", "HRNet-W48 EMRT", HRNET_YAML, HRNET_REGIONS, SP_LARGE_CROP)])
-        launches = _total([launches, *got])
-        ratio = ratios["HRNet-W48 EMRT"]
-        if torchrun:
-            phase10_torchrun(str(Path(tmp) / "torchrun"))
-    print(f"phase 10: K1 / K2-K3 launches in the ranks' steps: {launches}")
-    return launches, ratio
+        phase10_torchrun(str(Path(tmp) / "torchrun"))
 
 
 # --------------------------------------- phase 11: SP of the transformer EMRTs
 
 # (a): dp1 x sp2 of the paper's transformer-backbone EMRTs: (name, yaml, the
 # encoder's queries at 256^2, (d)'s crop, (d)'s regions). ViT-L's (d) crop is
-# 768: one process's attention rows alone would take ~77 GB at 2 x 1024^2
-# (and the EMRT trains at no batch of 1: the pyramid pooling's 1 x 1 map has
-# one value a channel for its BatchNorm)
+# 768: one process's attention rows alone would take ~77 GB at 2 x 1024^2 (a
+# batch of 1 x 1024^2, which the EMRT trains at since phase 14, is untried)
 TAPS_REGIONS = ("encoder",) + SP_REGIONS[1:]
 SP_TRANSFORMERS = (
     ("CSwin", ROOT / "configs" / "EMRT" / "EMRT_cswin_256x256_160k_potsdam.yaml", 1344, 1024,
@@ -3277,11 +3353,195 @@ def phase12_specs(cut):
               TRANS2SEG_SPLIT)])
 
 
+# ------------------------------------------------ phase 14: one image a process
+
+# (a): bf16 train steps of the flagship at batch 1; its pyramid pooling's
+# pool-scale-1 branch, whose BatchNorm then sees one value a channel
+BS1_STEPS, SCALE1 = 3, "psp_module.pool_branches.0"
+# (b): a yaml that asks for batch 1 (DATA.BATCH_SIZE: 1), at full width
+UPERNET_CSWIN_S = (ROOT / "configs" / "upernet_cswin"
+                   / "upernet_cswin_small_patch4_512x512_160k_ade20k.yaml")
+BS1_TRAINER_ITERS = 2
+# (c): tests/test_convergence.py on the card in bf16 through the kernels: the
+# tiny EMRT (ResNet-18, output stride 32) on 4 classes at crop 32, 80 Adam
+# steps (lr 1e-3, clip 1.0) over a cycle of 4 batches of 4 whose labels are
+# the pixels' colours in 8 x 8 blocks; the JAX test's bounds: the last 5
+# losses' mean below 0.6 x the first 5's, held-out pixel accuracy above 0.5
+# and mIoU above 0.3
+CONV_CLASSES, CONV_CROP, CONV_BATCH, CONV_STEPS = 4, 32, 4, 80
+CONV_PALETTE = ((-1.5, -1.5, -1.5), (1.5, -1.5, 1.5), (-1.5, 1.5, 1.5), (1.5, 1.5, -1.5))
+CONV_LOSS_RATIO, CONV_ACC, CONV_MIOU = 0.6, 0.5, 0.3
+# (d): the flagship's float32 dp1 x sp2 step at one image against one
+# process's, in ``sp_phases``' start of the two ranks
+SP_ONE_IMAGE = "EMRT-R50 one image"
+
+
+def phase14_specs(cut):
+    """Phase 14 (d) as ``sp_phases`` takes it: one checked dp1 x sp2 step
+    (``cut`` changes nothing)."""
+    return [("phase 14 (d)", SP_ONE_IMAGE, CONFIG, (), 1344)], [], []
+
+
+def phase14_steps(card):
+    """(a): BS1_STEPS bf16 train steps of the flagship at batch 1 through the
+    kernels: finite losses, 6 / 6 launches a step, the pool-scale-1
+    branch's running variance exactly 0.9 x the one before the step and its
+    conv's and BatchNorm weight's gradients a tensor of zeros. Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
+    cfg = _train_config()
+    torch.manual_seed(0)
+    model = get_model(cfg, device="cuda")
+    step = make_train_step(model, get_loss_function(cfg), get_optimizer(cfg, model,
+                                                                        get_scheduler(cfg)))
+    norm, conv = model.get_submodule(f"{SCALE1}.2"), model.get_submodule(f"{SCALE1}.1")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    losses, launches = [], []
+    for _ in range(BS1_STEPS):
+        batch = {"image": torch.randn((1, 3, 256, 256), generator=gen, device="cuda"),
+                 "label": torch.randint(0, cfg.DATA.NUM_CLASSES, (1, 256, 256), generator=gen,
+                                        device="cuda")}
+        old = norm.running_var.clone()
+        _reset_counts()
+        losses.append(step(batch).item())
+        torch.cuda.synchronize()
+        launches.append(_counts())
+        check(torch.equal(norm.running_var, old.mul(0.9)),
+              "the pool-scale-1 branch's running variance is not 0.9 x the one before")
+        for what, p in (("conv", conv.weight), ("BatchNorm weight", norm.weight)):
+            check(p.grad is not None and not p.grad.any(),
+                  f"the pool-scale-1 branch's {what} has no gradient of zeros")
+    step_ms = cuda_ms(lambda: step(batch), reps=5, warmup=1)
+    print(f"phase 14 (a): {BS1_STEPS} bf16 train steps of the flagship EMRT-R50 at bs 1, "
+          f"256^2: losses {[round(x, 4) for x in losses]}, launches forward/backward a step "
+          f"{launches}; the pool-scale-1 branch's running variance 0.9 x the one before "
+          f"after each step, its conv's and BatchNorm weight's gradients zeros; a step "
+          f"{step_ms:.2f} ms (median of 5, CUDA events; {card})")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(all(tuple(n) == (6, 6) for n in launches), f"launches a step {launches}")
+    del model, step
+    torch.cuda.empty_cache()
+    return _total(launches)
+
+
+def phase14_trainer():
+    """(b): ``train.main`` on the ADE20K UperNet-CSwin-S yaml at full width
+    and its own DATA.BATCH_SIZE of 1 (no override), Synthetic data, bf16,
+    BS1_TRAINER_ITERS iterations with an eval: finite losses, 0 / 0
+    launches (no deformable attention)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from emrt_tpu_torch.train import main as train_main
+    check(_variant_config(UPERNET_CSWIN_S).DATA.BATCH_SIZE == 1, "the yaml's batch is not 1")
+    with tempfile.TemporaryDirectory() as save_dir:
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = train_main(["--config", str(UPERNET_CSWIN_S), "--device", "cuda", "--seed", "0",
+                          "--iters", str(BS1_TRAINER_ITERS), "DATA.DATASET", "Synthetic",
+                          "TRAIN.DTYPE", "bfloat16", "SAVE_DIR", save_dir,
+                          "LOGGING_INFO_FREQ", "1"])
+        torch.cuda.synchronize()
+        launches = _counts()
+    print(f"phase 14 (b): train.main {BS1_TRAINER_ITERS} iters on {UPERNET_CSWIN_S.name} at "
+          f"its batch of 1 in {time.perf_counter() - t0:.1f} s: window losses "
+          f"{[round(x, 4) for x in out['losses']]}, mIoU {out['mious']}; launches "
+          f"forward/backward {launches}")
+    check(out["steps"] == BS1_TRAINER_ITERS and len(out["losses"]) > 0
+          and all(np.isfinite(out["losses"])), f"{out['steps']} steps, losses {out['losses']}")
+    check(launches == (0, 0), f"the UperNet launched K1 / K2-K3 {launches} times")
+
+
+def _conv_batch(rng):
+    """A batch of ``tests/test_convergence.py``: labels in 8 x 8 blocks, each
+    pixel its class's colour plus N(0, 0.25) noise (NCHW tensors)."""
+    import numpy as np
+    import torch
+    n, crop = CONV_BATCH, CONV_CROP
+    blocks = rng.integers(0, CONV_CLASSES, (n, crop // 8, crop // 8))
+    label = np.repeat(np.repeat(blocks, 8, axis=1), 8, axis=2).astype(np.int32)
+    img = (np.asarray(CONV_PALETTE, np.float32)[label]
+           + rng.normal(0, 0.25, (n, crop, crop, 3)).astype(np.float32))
+    return {"image": torch.from_numpy(img.transpose(0, 3, 1, 2).copy()).cuda(),
+            "label": torch.from_numpy(label).long().cuda()}
+
+
+def phase14_convergence(card):
+    """(c): the bf16 convergence of ``tests/test_convergence.py`` through the
+    kernels against its bounds. Returns the launches."""
+    import numpy as np
+    import torch
+    from emrt_tpu_torch.config import get_config
+    from emrt_tpu_torch.losses import get_loss_function
+    from emrt_tpu_torch.models import get_model
+    from emrt_tpu_torch.solver import get_optimizer, get_scheduler
+    from emrt_tpu_torch.train import make_train_step
+    from emrt_tpu_torch.utils.metrics import confusion_matrix, mean_iou
+    cfg = get_config()
+    cfg.DATA.NUM_CLASSES, cfg.DATA.CROP_SIZE = CONV_CLASSES, (CONV_CROP, CONV_CROP)
+    cfg.MODEL.NAME, cfg.MODEL.ENCODER.TYPE, cfg.MODEL.OUTPUT_STRIDE = "EMRT", "resnet18", 32
+    cfg.TRAIN.BASE_LR, cfg.TRAIN.ITERS, cfg.TRAIN.DTYPE = 1e-3, 100000, "bfloat16"
+    cfg.TRAIN.OPTIMIZER.NAME, cfg.TRAIN.OPTIMIZER.WEIGHT_DECAY = "Adam", 0.0
+    cfg.TRAIN.OPTIMIZER.GRAD_CLIP = 1.0
+    torch.manual_seed(0)
+    model = get_model(cfg, device="cuda")
+    step = make_train_step(model, get_loss_function(cfg),
+                           get_optimizer(cfg, model, get_scheduler(cfg)))
+    rng = np.random.default_rng(0)
+    _conv_batch(rng)                   # the JAX test's initialisation batch
+    batches = [_conv_batch(rng) for _ in range(4)]
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = [step(batches[i % 4]) for i in range(CONV_STEPS)]
+    losses = torch.stack(losses).float().cpu().numpy()
+    train_s = time.perf_counter() - t0
+    launches = _counts()
+    held_out = _conv_batch(np.random.default_rng(123))
+    with torch.no_grad():
+        pred = model.eval()(held_out["image"])[0].argmax(1)
+    cm = confusion_matrix(pred, held_out["label"], CONV_CLASSES).cpu().numpy()
+    inter, label_area = np.diag(cm), cm.sum(1)
+    miou = mean_iou(inter, cm.sum(0), label_area)[1]
+    acc = inter.sum() / label_area.sum()
+    first, last = losses[:5].mean(), losses[-5:].mean()
+    print(f"phase 14 (c): bf16 convergence through K1-K3 (tests/test_convergence.py's "
+          f"ResNet-18 EMRT, {CONV_CLASSES} classes, crop {CONV_CROP}, {CONV_STEPS} Adam steps "
+          f"of {CONV_BATCH} in {train_s:.1f} s; {card}): loss of the first 5 steps "
+          f"{first:.4f}, of the last 5 {last:.4f} ({last / first:.3f} x, bound "
+          f"{CONV_LOSS_RATIO}); held out: pixel accuracy {acc:.4f} (bound {CONV_ACC}), mIoU "
+          f"{miou:.4f} (bound {CONV_MIOU}); launches forward/backward {launches}")
+    check(np.isfinite(losses).all(), "non-finite losses")
+    check(last < CONV_LOSS_RATIO * first, f"the loss fell from {first} to {last} only")
+    check(acc > CONV_ACC and miou > CONV_MIOU, f"held out: accuracy {acc}, mIoU {miou}")
+    check(launches == (6 * CONV_STEPS, 6 * CONV_STEPS), f"launches {launches}")
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase14(card):
+    """One image a process, and bf16 convergence: (a) ``phase14_steps``, (b)
+    ``phase14_trainer``, (c) ``phase14_convergence``; (d) runs in
+    ``sp_phases``. Returns (a)'s and (c)'s launches."""
+    launches = phase14_steps(card)
+    phase14_trainer()
+    return launches, phase14_convergence(card)
+
+
 def sp_phases(card, phases, cut=False):
     """Spatial parallelism at full width with seeded weights, the ranks on
-    the one card over gloo, of phase 11 (the transformer-backbone EMRTs)
-    and of phases 12-13 (the zoo) (``phases``: ``phase11_specs``,
-    ``phase12_specs``), their (a) and (d) rank steps in one start of the two
+    the one card over gloo, of phases 9 and 10 (the flagship, the HRNet and
+    ResNeSt EMRTs; their NCCL legs and CLIs stay in ``phase9`` and
+    ``phase10``), of phase 11 (the transformer-backbone EMRTs), of phases
+    12-13 (the zoo) and of phase 14 (d) (the flagship at one image)
+    (``phases``: ``phase9_specs`` ... ``phase14_specs``), their checked
+    (a), (b) and memory (d), (e) rank steps in one start of the two
     ranks, their (d) one-process steps in one process, their (b) steps in
     one start of the four ranks: a start costs ~15-25 s on the card's
     shared host. (c): phase 11's steps launch K1 and the backward 6 / 6
@@ -3293,19 +3553,22 @@ def sp_phases(card, phases, cut=False):
     torch.cuda.empty_cache()
     specs = [spec(cut) for spec in phases]
     steps, memory, tpsp = ([item for spec in specs for item in spec[i]] for i in range(3))
-    what = " and ".join("phase 11" if spec is phase11_specs else "phases 12-13"
-                        for spec in phases)
+    names = {phase9_specs: "phase 9", phase10_specs: "phase 10", phase11_specs: "phase 11",
+             phase12_specs: "phases 12-13", phase14_specs: "phase 14 (d)"}
+    what = " and ".join(names[spec] for spec in phases)
     with tempfile.TemporaryDirectory() as tmp:
         launches, ratios = sharded_steps(card, f"{what} (a), (d)", tmp, steps, memory)
         launches += tpsp_steps(card, tmp, tpsp)
     tags = [tag for tag, *_ in steps] + [tag for tag, *_ in tpsp]
-    by_phase = {11: _total([n for t, n in zip(tags, launches) if t.startswith("phase 11")]),
-                12: _total([n for t, n in zip(tags, launches) if not t.startswith("phase 11")])}
+    # phases 12 and 13 count as one
+    by_phase = {k: _total([n for t, n in zip(tags, launches) if int(t.split()[1]) in ps])
+                for k, ps in ((9, (9,)), (10, (10,)), (11, (11,)), (12, (12, 13)), (14, (14,)))}
     if phase12_specs in phases:
         check(by_phase[12] == (0, 0), f"phases 12-13 (c): the zoo's rank steps launched K1 / "
                                       f"K2-K3 {by_phase[12]} times")
-    print(f"{what} (c): K1 / K2-K3 launches in the ranks' steps (phase 11; phases 12-13)"
-          f"{' (depth cut)' if cut else ''}: {by_phase[11]}; {by_phase[12]}")
+    print(f"{what}: K1 / K2-K3 launches in the ranks' steps (phase 9; 10; 11; 12-13; 14 (d))"
+          f"{' (phases 11-12 at a cut depth)' if cut else ''}: "
+          f"{'; '.join(str(by_phase[k]) for k in (9, 10, 11, 12, 14))}")
     return by_phase, ratios
 
 
@@ -3401,17 +3664,21 @@ def main():
         ended("phase 5")
     phase6(card)
     ended("phase 6")
-    dp_launches = phase7(card)
+    bs1_launches, conv_launches = phase14(card)
+    ended("phase 14 (a)-(c)")
+    dp_launches, tp_step = phase7(card)
     ended("phase 7")
-    tp_launches = phase8(card)
+    tp_launches = phase8(card, tp_step)
     ended("phase 8")
-    sp_launches = phase9(card)
-    ended("phase 9")
-    tpsp_launches, _ = phase10(card)
-    ended("phase 10")
-    sp_launches_by_phase, _ = sp_phases(card, (phase11_specs, phase12_specs), cut=True)
-    sp_transformer_launches, sp_zoo_launches = sp_launches_by_phase[11], sp_launches_by_phase[12]
-    ended("phases 11-13")
+    phase9(card)
+    phase10()
+    ended("phases 9 (c) and 10 (d)")
+    by_phase, _ = sp_phases(card, (phase9_specs, phase10_specs, phase11_specs, phase12_specs,
+                                   phase14_specs), cut=True)
+    sp_launches, tpsp_launches = by_phase[9], by_phase[10]
+    sp_transformer_launches, sp_zoo_launches = by_phase[11], by_phase[12]
+    sp_one_image_launches = by_phase[14]
+    ended("the ranks' steps of phases 9-13 and 14 (d)")
     from emrt_tpu_torch.ops import deformable_cuda
     name, levels, len_q = SHAPES[0]
     fwd = fwd_times[name, BS, torch.bfloat16]
@@ -3443,6 +3710,11 @@ def main():
         bs 32 and 8."""
         return at(times, [(name, bs) for name, *_ in SHAPES[-2:] for bs in (BS, TRAIN_BS)])
 
+    def at_bs1(times):
+        """At BS1_SHAPES, bs 1."""
+        return at(times, [(name, 1) for name, *_ in BS1_SHAPES])
+
+
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ms_deform_attn_fwd", "route": "cuda",
@@ -3453,13 +3725,15 @@ def main():
          "launches_dp": dp_launches[0], "launches_tp": tp_launches[0],
          "launches_sp": sp_launches[0], "launches_tpsp": tpsp_launches[0],
          "launches_sp_transformer": sp_transformer_launches[0],
-         "launches_sp_zoo": sp_zoo_launches[0],
+         "launches_sp_zoo": sp_zoo_launches[0], "launches_batch1": bs1_launches[0],
+         "launches_convergence": conv_launches[0],
+         "launches_sp_one_image": sp_one_image_launches[0],
          "max_abs_err": max_err, "ms": fwd["random"], "ms_on_the_grid": fwd["on the grid"],
          "ms_bs8": fwd_times[name, TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": fwd["plain"], "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
          "library_ms": None, "plan": str(plan), "timed_at": timed_at,
          "tp_heads": at_tp_heads(fwd_times), "hrnet": at_hrnet(fwd_times),
-         "vit768": at_vit768(fwd_times), "card": card},
+         "vit768": at_vit768(fwd_times), "bs1": at_bs1(fwd_times), "card": card},
         {"name": "ms_deform_attn_bwd", "route": "cuda",
          "source": "emrt_tpu_torch/csrc/ms_deform_attn_bwd.cu",
          "replaces": "emrt_tpu/ops/deformable_pallas.py:200 "
@@ -3468,12 +3742,15 @@ def main():
          "launches_dp": dp_launches[1], "launches_tp": tp_launches[1],
          "launches_sp": sp_launches[1], "launches_tpsp": tpsp_launches[1],
          "launches_sp_transformer": sp_transformer_launches[1],
-         "launches_sp_zoo": sp_zoo_launches[1],
+         "launches_sp_zoo": sp_zoo_launches[1], "launches_batch1": bs1_launches[1],
+         "launches_convergence": conv_launches[1],
+         "launches_sp_one_image": sp_one_image_launches[1],
          "max_abs_err": bwd_err, "ms": bwd["random"], "ms_on_the_grid": bwd["on the grid"],
          "ms_bs8": bwd_times[SHAPES[0][0], TRAIN_BS, torch.bfloat16]["random"],
          "plain_ms": bwd["plain"], "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],
          "library_ms": None, "timed_at": timed_at, "tp_heads": at_tp_heads(bwd_times),
-         "hrnet": at_hrnet(bwd_times), "vit768": at_vit768(bwd_times), "card": card}]}))
+         "hrnet": at_hrnet(bwd_times), "vit768": at_vit768(bwd_times),
+         "bs1": at_bs1(bwd_times), "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3492,8 +3769,10 @@ def main_tp_step():
 
 def main_sp_step():
     """``--sp-step``: phase 0, then phase 9 without the CLIs ((a), (b) and (d)
-    over gloo, both ranks on the first card)."""
+    over gloo, both ranks on the first card; over NCCL where there are two
+    cards)."""
     card = phase0()
+    sp_phases(card, (phase9_specs,))
     phase9(card, torchrun=False)
     print("chip_smoke.py --sp-step: passed")
 
@@ -3502,7 +3781,7 @@ def main_tpsp_step():
     """``--tpsp-step``: phase 0, then phase 10 without the CLIs ((a), (b), (c)
     and (e) over gloo, the ranks on the first card)."""
     card = phase0()
-    phase10(card, torchrun=False)
+    sp_phases(card, (phase10_specs,))
     print("chip_smoke.py --tpsp-step: passed")
 
 
@@ -3538,6 +3817,18 @@ def main_norm_seeds():
     print("chip_smoke.py --norm-seeds: passed")
 
 
+def main_batch1():
+    """``--batch1``: phase 0, phases 1 and 3a at BS1_SHAPES alone (with their
+    times), phase 14 (a)-(c), and (d) in a start of two ranks of its own."""
+    card = phase0()
+    phase1(BS1_CASES)
+    time_fwd([(bs, name, levels, len_q, heads) for name, levels, len_q, bs, heads in BS1_CASES])
+    phase3a(BS1_CASES)
+    phase14(card)
+    sp_phases(card, (phase14_specs,))
+    print("chip_smoke.py --batch1: passed")
+
+
 def main_train_step():
     """``--train-step``: phase 0, then phase 3c's timing of one process's
     bf16 bs-8 train step alone (median of 20)."""
@@ -3549,7 +3840,7 @@ if __name__ == "__main__":
     modes = {"--tp-step": main_tp_step, "--sp-step": main_sp_step,
              "--tpsp-step": main_tpsp_step, "--transformer-sp": main_transformer_sp,
              "--zoo-sp": main_zoo_sp, "--norm-seeds": main_norm_seeds,
-             "--train-step": main_train_step}
+             "--train-step": main_train_step, "--batch1": main_batch1}
     if sys.argv[1:] and sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} [{' | '.join(modes)}]")
     modes.get(sys.argv[1] if sys.argv[1:] else None, main)()

@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from ..ops.deformable import deformable_attention, deformable_attention_core
 from .layers import NORM_EPS, MultiHeadAttention, layer_norm, split_dropout, xavier_uniform_
-from .position_encoding import encoder_reference_points, sine_position_embedding
+from .position_encoding import (LearnedPositionEmbedding, encoder_reference_points,
+                                 sine_position_embedding)
 
 
 def _offset_bias_init(num_heads: int, num_levels: int, num_points: int) -> np.ndarray:
@@ -263,16 +264,22 @@ class EncoderDecoder(nn.Module):
     forward(src_feats, src_psp): src_feats is a list of NCHW backbone maps
     (c2, c3, c4), src_psp is [bs, n_queries, C] pooled tokens used as the
     decoder's tgt. Returns (hs [bs, n_queries, C], memory [bs, sum(HW), C]).
+    ``position_embed_type`` "sine" (the default) or "learned"
+    (``LearnedPositionEmbedding``, reference :340-348).
     """
 
     def __init__(self, in_channels, num_queries: int = 110, hidden_dim: int = 256,
                  nhead: int = 8, num_encoder_layers: int = 4,
                  num_decoder_layers: int = 2, num_encoder_points: int = 6,
                  num_decoder_points: int = 6, dim_feedforward: int = 1024,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, position_embed_type: str = "sine"):
         super().__init__()
+        if position_embed_type not in ("sine", "learned"):
+            raise ValueError(f"position_embed_type {position_embed_type!r}: 'sine' or 'learned'")
         n_levels = len(in_channels)
         self.hidden_dim = hidden_dim
+        self.position_embedding = (LearnedPositionEmbedding(hidden_dim // 2)
+                                   if position_embed_type == "learned" else None)
         self.input_proj = nn.ModuleList(
             nn.Sequential(xavier_uniform_(nn.Conv2d(c, hidden_dim, 1)),
                           nn.GroupNorm(32, hidden_dim, eps=NORM_EPS))
@@ -297,6 +304,8 @@ class EncoderDecoder(nn.Module):
         sizes = [h * w for h, w in spatial_shapes]
         level_pos = torch.cat([self.level_embed.weight[lvl].expand(n, -1)
                                for lvl, n in enumerate(sizes)])
+        if self.position_embedding is not None:
+            sine = torch.cat([self.position_embedding(h, w) for h, w in spatial_shapes])
         pos_embed = (sine + level_pos)[None]                    # [1, sum, C]
 
         memory = levels_to_tokens(srcs)

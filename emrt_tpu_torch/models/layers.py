@@ -40,6 +40,11 @@ class _FlaxRunningVar:
     backward, so that one must not change afterwards), and the buffer
     becomes ``(1 - m) * old + m * var_biased`` = ``new - (new - (1 - m) *
     old) / n``. Eval mode and the state-dict keys are torch's.
+
+    With one value a channel (n = 1: a 1x1 pooled map or a vector at batch
+    1) torch refuses to train; flax takes its one-pass statistics, mean =
+    E[x] and var = max(E[x^2] - E[x]^2, 0) = 0, in float32, so it outputs
+    the bias and moves the running variance toward 0 (``_one_value``).
     """
 
     def forward(self, x):
@@ -47,6 +52,8 @@ class _FlaxRunningVar:
             return super().forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
+        if x.numel() == x.shape[1]:
+            return self._one_value(x)
         new = self.running_var.clone()
         out = F.batch_norm(x, self.running_mean, new, self.weight, self.bias, True,
                            self.momentum, self.eps)
@@ -54,6 +61,24 @@ class _FlaxRunningVar:
         with torch.no_grad():
             self.running_var.copy_(new - (new - (1.0 - self.momentum) * self.running_var) / n)
         return out
+
+    def _one_value(self, x):
+        """flax's train-mode BatchNorm of x with one value a channel, in
+        float32 at least, y in x's dtype. y is computed from x, so that the
+        layer before gets a gradient (of zeros) as in flax, and with it the
+        weight decay the optimizer applies to the parameters it steps."""
+        dims = [0] + list(range(2, x.dim()))
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims)
+        var = (xf.square().mean(dims) - mean.square()).clamp(min=0.0)
+        y = ((xf - mean.view(view)) * torch.rsqrt(var + self.eps).view(view)
+             * self.weight.view(view) + self.bias.view(view))
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+        return y.to(x.dtype)
 
 
 class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):

@@ -1,10 +1,11 @@
-"""DETR-style sine position embedding and encoder reference points
-(counterpart of ``emrt_tpu/models/position_encoding.py``).
+"""DETR-style sine and learned position embeddings and encoder reference
+points (counterpart of ``emrt_tpu/models/position_encoding.py``).
 
-Both are host-side numpy tables per static shape, exactly the JAX package's;
-``sine_position_embedding`` and ``encoder_reference_points`` hand them over
-as tensors on the requested device. The learned table waits with the
-variants that use it (ROADMAP.md queue 1, M2).
+The sine embedding and the reference points are host-side numpy tables per
+static shape, exactly the JAX package's; ``sine_position_embedding`` and
+``encoder_reference_points`` hand them over as tensors on the requested
+device. ``LearnedPositionEmbedding`` is the transformer's
+``position_embed_type="learned"``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,3 +70,28 @@ def _reference_points_table(spatial_shapes: tuple) -> np.ndarray:
 def encoder_reference_points(spatial_shapes, device=None) -> torch.Tensor:
     """[sum(HW), n_levels, 2] float32 static encoder reference points."""
     return torch.from_numpy(_reference_points_table(tuple(spatial_shapes))).to(device)
+
+
+class LearnedPositionEmbedding(nn.Module):
+    """Learned row and column tables of ``num_embeddings`` positions each
+    (flax ``position_embedding/{row,col}_embed/embedding``, N(0, 1) at
+    init): forward(h, w) -> [h*w, 2*num_pos_feats], pos(y, x) =
+    concat(col[x], row[y]), x first, unlike the sine embedding's y first.
+    A map larger than the tables raises, as the JAX module does."""
+
+    def __init__(self, num_pos_feats: int = 128, num_embeddings: int = 50):
+        super().__init__()
+        self.num_embeddings = num_embeddings
+        self.row_embed = nn.Embedding(num_embeddings, num_pos_feats)
+        self.col_embed = nn.Embedding(num_embeddings, num_pos_feats)
+
+    def forward(self, h: int, w: int) -> torch.Tensor:
+        if h > self.num_embeddings or w > self.num_embeddings:
+            raise ValueError(
+                f"LearnedPositionEmbedding table holds {self.num_embeddings} positions per "
+                f"axis but the feature map is {h}x{w}; increase num_embeddings or use the "
+                f"sine embedding")
+        col = self.col_embed.weight[:w]
+        row = self.row_embed.weight[:h]
+        pos = torch.cat([col[None].expand(h, -1, -1), row[:, None].expand(-1, w, -1)], -1)
+        return pos.reshape(h * w, -1)

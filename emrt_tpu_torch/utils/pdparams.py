@@ -231,6 +231,10 @@ def build_key_map(flat_p, model_name: str = "EMRT", encoder_type: str = "resnet5
     n_dec = sum(1 for k in flat_p if k.startswith("encoder_decoder/decoder_layer")
                 and k.endswith("norm1/scale"))
     maps = emrt_trunk_key_map(n_enc, n_dec)
+    for table in ("row_embed", "col_embed"):   # position_embed_type "learned"
+        fkey = f"encoder_decoder/position_embedding/{table}/embedding"
+        if fkey in flat_p:
+            maps[0][fkey] = (f"model.position_embedding.{table}.weight", "id")
     if "EMRT_CSwin" in name or enc == "cswintransformer":
         backbone = M.cswin_backbone_map(flat_p, flax="backbone", pd="encoder")
     elif "EMRT_ViT" in name or enc == "vit":

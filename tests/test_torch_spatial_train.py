@@ -14,6 +14,10 @@ rows are more often ignored than its top rows (a per-rank mean shows):
   (the dropout step's gradients read 1.2e-3 apart, 3.7e-5 without
   dropout); in float64 the same step's gradients agree within 1e-6 (4e-8
   read: the logits leave the model in float32);
+- dp1 x sp2 at one image against one process at one image (the pyramid
+  pooling's pool-scale-1 branch then has one value a channel), float32 and
+  float64, with the same bounds but for the float32 gradient norm, which
+  at one image moves with rounding by more than 1e-3 (held to a control);
 - dp2 x sp2 on four ranks against dp2 on two (the data ranks draw their
   own dropout masks, so one process cannot draw them), with the same
   bounds;
@@ -45,10 +49,12 @@ from emrt_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 torch.set_num_threads(1)
 DROPOUT = 0.1
 GRAD_RTOL, NORM_RTOL, STATS_TOL = {"float32": 1e-2, "float64": 1e-6}, 1e-3, 1e-5
+CONTROL_FACTOR = 5.0
 # (fault, dtype) of the dp1 x sp2 runs, in one start of the two ranks
 SP2_RUNS = ((None, "float32"), (None, "float64"), ("gather without sum", "float32"),
             ("sharded bn per rank", "float32"), ("full loss", "float32"),
-            ("replicated bn over spatial", "float32"))
+            ("replicated bn over spatial", "float32"), ("one image", "float32"),
+            ("one image", "float64"))
 
 
 def _batch(n):
@@ -71,15 +77,15 @@ def state_path(tmp_path_factory):
 
 @functools.lru_cache(maxsize=None)
 def _sp2_runs(state_path):
-    image, label = _batch(2)
-    calls = [(grid_step_rank, (1, 2, "r50", state_path, image, label, DROPOUT, fault, 0, dtype))
+    calls = [(grid_step_rank, (1, 2, "r50", state_path, *_batch(1 if fault == "one image" else 2),
+                               DROPOUT, None if fault == "one image" else fault, 0, dtype))
              for fault, dtype in SP2_RUNS]
     return dict(zip(SP2_RUNS, zip(*run_ranks(calls_rank, 2, args=(calls,), timeout=600))))
 
 
 @functools.lru_cache(maxsize=None)
-def _one(state_path, dtype):
-    image, label = _batch(2)
+def _one(state_path, dtype, n=2):
+    image, label = _batch(n)
     return grid_step_rank(0, 1, 1, 1, "r50", state_path, image, label, DROPOUT, dtype=dtype)
 
 
@@ -93,7 +99,7 @@ def _free_the_steps():
     _one.cache_clear()
 
 
-def _failures(got, want, dtype) -> list:
+def _failures(got, want, dtype, norm_rtol=NORM_RTOL) -> list:
     """The checks of the step ``got`` against ``want`` that it fails."""
     flat = lambda r: np.concatenate([v.ravel() for v in r["grads"].values()])  # noqa: E731
     g, w = flat(got), flat(want)
@@ -101,7 +107,7 @@ def _failures(got, want, dtype) -> list:
                  for k, v in want["state"].items() if "running" in k), default=0.0)
     checks = ((abs(got["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"]),
                f"loss {got['loss']} vs {want['loss']}"),
-              (abs(got["norm"] - want["norm"]) <= NORM_RTOL * want["norm"],
+              (abs(got["norm"] - want["norm"]) <= norm_rtol * want["norm"],
                f"norm {got['norm']} vs {want['norm']}"),
               (np.linalg.norm(g - w) <= GRAD_RTOL[dtype] * np.linalg.norm(w),
                f"gradients {np.linalg.norm(g - w) / np.linalg.norm(w):.3e} apart (L2)"),
@@ -121,6 +127,29 @@ def test_dp1_x_sp2_step_is_one_processs_step(dtype, state_path):
     for got in ranks:
         assert _failures(got, _one(state_path, dtype), dtype) == []
     _assert_ranks_equal(ranks)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_dp1_x_sp2_step_at_one_image_is_one_processs_step(dtype, state_path):
+    """One image a process: the pyramid pooling's pool-scale-1 branch (whole
+    on every rank, its BatchNorm on the data group of one rank) sees one
+    value a channel, as in one process; its running statistics come out
+    equal on the two ranks. At one image the float32 gradient norm moves
+    with rounding: one process's lies 2.9e-3 from its own float64 norm here
+    (1.3e-4 at two images), so the float32 step's norm is held within
+    CONTROL_FACTOR x that distance where it exceeds NORM_RTOL; the float64
+    step, within NORM_RTOL and the float64 bounds."""
+    want = _one(state_path, dtype, 1)
+    norm_rtol = NORM_RTOL
+    if dtype == "float32":
+        exact = _one(state_path, "float64", 1)["norm"]
+        norm_rtol = max(NORM_RTOL, CONTROL_FACTOR * abs(want["norm"] - exact) / exact)
+    ranks = _sp2_runs(state_path)["one image", dtype]
+    for got in ranks:
+        assert _failures(got, want, dtype, norm_rtol) == []
+    _assert_ranks_equal(ranks)
+    var = "psp_module.pool_branches.0.2.running_var"
+    np.testing.assert_array_equal(ranks[0]["state"][var], want["state"][var])
 
 
 @pytest.mark.parametrize("fault", ["gather without sum", "sharded bn per rank"])
